@@ -1,0 +1,97 @@
+"""Build and bind the hand-written CUDA kernels under ``csrc/``.
+
+Each kernel source is compiled by ``nvcc`` for ``sm_90a`` into a shared
+library with a plain C entry point and loaded with ``ctypes`` (no PyTorch
+headers, so a build takes seconds). Libraries go to ``mlvfs_tpu_torch/build/``
+under a name that carries a hash of the source and the flags, so an edited
+source is rebuilt at its next use and a stale library is never loaded.
+
+Nothing is built at import: the first call of :func:`library` builds (or
+finds) the library. A missing ``nvcc`` or a failed build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+_PKG_DIR = os.path.dirname(os.path.abspath(__file__))
+SRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(_PKG_DIR, "build")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+# C signatures of the entry points, per source file
+_SIGNATURES = {
+    "unpack": {
+        "mlvfs_unpack": (
+            ctypes.c_int,
+            [
+                ctypes.c_void_p,  # words u16 (batch, n_words)
+                ctypes.c_void_p,  # out u16 (batch, n_pixels)
+                ctypes.c_longlong,  # batch
+                ctypes.c_longlong,  # n_words
+                ctypes.c_longlong,  # n_pixels
+                ctypes.c_int,  # bpp
+                ctypes.c_void_p,  # cudaStream_t
+            ],
+        ),
+    },
+}
+
+_lock = threading.Lock()
+_libs = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    path = os.path.join(home, "bin", "nvcc")
+    if os.path.isfile(path):
+        return path
+    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin); cannot build CUDA kernels")
+
+
+def library_path(name: str) -> str:
+    """Where the library of ``csrc/<name>.cu`` is (or will be) built."""
+    with open(os.path.join(SRC_DIR, name + ".cu"), "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+
+
+def _compile(name: str, out: str) -> None:
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(SRC_DIR, name + ".cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed building {name}.cu (rc={proc.returncode}):\n{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, out)  # atomic: a concurrent build never loads a partial file
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The bound library of ``csrc/<name>.cu``, built on first use."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is not None:
+            return lib
+        path = library_path(name)
+        if not os.path.isfile(path):
+            _compile(name, path)
+        lib = ctypes.CDLL(path)
+        for fn_name, (restype, argtypes) in _SIGNATURES[name].items():
+            fn = getattr(lib, fn_name)
+            fn.restype = restype
+            fn.argtypes = argtypes
+        _libs[name] = lib
+        return lib

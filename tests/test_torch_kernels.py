@@ -1,0 +1,120 @@
+"""The port's CUDA kernels against their plain PyTorch twins, on the card.
+
+The tests marked ``cuda`` skip without a card. This file imports torch and
+the port only (no jax), so the GPU machine runs it on its own:
+
+    python -m pytest -p no:cacheprovider --noconftest tests/test_torch_kernels.py
+"""
+
+import os
+import random
+import shutil
+
+import numpy as np
+import pytest
+import torch
+
+from mlvfs_tpu.format import synth
+from mlvfs_tpu_torch import _build
+from mlvfs_tpu_torch.ops import pixels, unpack
+from mlvfs_tpu_torch.pipeline.config import ProcessingConfig
+from mlvfs_tpu_torch.pipeline.convert import convert_clip
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+
+
+def _words(rng, b, n_words):
+    return torch.from_numpy(rng.integers(0, 1 << 16, (b, n_words), dtype=np.uint16).view(np.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bpp", [8, 10, 12, 14])
+def test_unpack_kernel_matches_plain(bpp):
+    """Bit-equal to the twin, including a partial last block and a truncated stream."""
+    _need_card()
+    rng = np.random.default_rng(bpp)
+    for h, w, b, cut in [(1080, 1920, 4, 0), (727, 1808, 2, 0), (5, 27, 3, 0), (64, 96, 2, 1000)]:
+        words = _words(rng, b, unpack.words_for_pixels(h * w, bpp) - cut).cuda()
+        before = unpack.KERNEL_LAUNCHES
+        got = unpack.unpack_batch(words, bpp, h, w)
+        assert unpack.KERNEL_LAUNCHES == before + 1
+        want = unpack.unpack_batch_plain(words, bpp, h, w)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (h, w, b, cut)
+        assert torch.equal(got.cpu(), unpack.unpack_batch(words.cpu(), bpp, h, w))
+
+
+@pytest.mark.cuda
+def test_unpack_kernel_refuses_bad_input():
+    _need_card()
+    words = torch.zeros((2, 64), dtype=torch.int16, device="cuda")
+    with pytest.raises(TypeError):
+        unpack.unpack_batch(words.to(torch.int32), 14, 4, 8)
+    with pytest.raises(ValueError):
+        unpack.unpack_batch(words[:, ::2], 14, 4, 4)
+    with pytest.raises(ValueError):
+        unpack.unpack_batch(words, 17, 4, 8)
+    assert unpack.unpack_batch(words[:0], 14, 4, 8).shape == (0, 4, 8)
+
+
+@pytest.mark.cuda
+def test_pixel_fix_on_card_matches_cpu():
+    """The focus-pixel fix (plain torch) gives the same bits on the card."""
+    _need_card()
+    h, w, black = 1060, 1872, 2047
+    pl = pixels.load_focus_pixel_map(0x80000331, w, h)
+    rng = np.random.default_rng(5)
+    imgs = rng.integers(black - 8, 15000, (3, h, w)).astype(np.uint16)
+    imgs[:, ::3, ::7] = black
+    t = torch.from_numpy(imgs.view(np.int16))
+    want = pixels.fix_pixel_list_batch(t, pl, black, 0, 0, False)
+    got = pixels.fix_pixel_list_batch(t.cuda(), pl, black, 0, 0, False)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compression", ["none", "lzma", "lj92"])
+def test_convert_on_card_matches_cpu(compression, tmp_path):
+    """The whole default convert (with --all sidecars, tail batch) writes the
+    same bytes on the card as on the CPU."""
+    _need_card()
+    src = str(tmp_path / "C.MLV")
+    synth.write_mlv(src, width=320, height=96, frames=5, compression=compression,
+                    camera_model=0x80000331, audio=True)
+    rng = np.random.default_rng(4)
+    fpm = tmp_path / "80000331_320x96.fpm"
+    fpm.write_text("".join(f"{x} {y}\n" for x, y in zip(rng.integers(-2, 324, 400),
+                                                          rng.integers(-2, 98, 400))))
+    trees = []
+    for device in ("cuda", "cpu"):
+        out = tmp_path / device
+        random.seed(3)  # the WAV emitter draws a random originator reference
+        convert_clip(src, str(out), ProcessingConfig(device=device, batch_size=2,
+                                                     export_all=True, focus_pixel_dir=str(tmp_path)))
+        trees.append({n: (out / n).read_bytes() for n in sorted(os.listdir(out))})
+    assert list(trees[0]) == list(trees[1]) and len(trees[0]) == 8
+    assert trees[0] == trees[1]
+
+
+def test_library_path_follows_source(tmp_path, monkeypatch):
+    """A library is named by the hash of its source, so an edit rebuilds."""
+    path = _build.library_path("unpack")
+    assert path.startswith(_build.BUILD_DIR) and path.endswith(".so")
+    src = tmp_path / "unpack.cu"
+    shutil.copy(os.path.join(_build.SRC_DIR, "unpack.cu"), src)
+    monkeypatch.setattr(_build, "SRC_DIR", str(tmp_path))
+    assert _build.library_path("unpack") == path
+    src.write_text(src.read_text() + "\n// edited\n")
+    assert _build.library_path("unpack") != path
+
+
+def test_build_without_nvcc_raises(monkeypatch):
+    monkeypatch.setenv("PATH", "")
+    monkeypatch.setenv("CUDA_HOME", "/nonexistent")
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(_build, "library_path", lambda name: "/nonexistent/lib.so")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.library("unpack")
