@@ -7,25 +7,44 @@ Run from the root of the repository on a machine with one CUDA card:
 
 Phases (any failed check raises, and the script exits non-zero):
 
-  1. the card's name and power limit; build of the CUDA kernels from csrc/;
+  1. the card's name and power limit; build of the CUDA kernels from csrc/,
+     one nvcc per source, all started together;
   2. the unpack kernel against its plain PyTorch twin on the card, bit-equal
      (torch.equal), at 8/10/12/14 bpp: 1920x1080 with B=16, 1808x727, a pixel
      count that leaves a partial last block, and a truncated word stream;
      median CUDA-event times of both and the kernel's GB/s;
-  3. the main path, ``python -m mlvfs_tpu_torch convert CLIP -o OUT --device
-     cuda`` through ``cli.main``: a 1920x1080 14-bit 5D Mark III clip (64
-     frames) whose DNG payloads must equal the synthesized frames, and a
-     1872x1060 EOS M clip (32 frames, bundled focus-pixel map) whose first
-     DNGs must be byte-identical to the port's own CPU conversion; the
+  2b. the chroma-smoothing kernel against its plain twin, bit-equal, for the
+     2x2/3x3/5x5 methods at black 2047 and 2048: 1920x1080 with B=16,
+     1808x727 with B=4, the windowless 8x8, 8x16 and 16x8, every frame with a
+     10x30 block at exactly black; median CUDA-event times at 1080p/B=16,
+     GB/s, and the share of the card's bound;
+  3. the default convert path, ``python -m mlvfs_tpu_torch convert CLIP -o
+     OUT --device cuda`` through ``cli.main``: a 1920x1080 14-bit 5D Mark III
+     clip (64 frames) whose DNG payloads must equal the synthesized frames,
+     and a 1872x1060 EOS M clip (32 frames, bundled focus-pixel map) whose
+     first DNGs must be byte-identical to the port's own CPU conversion; the
      unpack kernel's launch count must grow by the number of batches;
+  3b. the flags-on path, ``convert CLIP --deflicker 3000 --cs3x3 --stripes
+     --bad-pix --device cuda``: a 1920x1080 14-bit 5D Mark III clip (48
+     frames) with a period-8 column gain and injected hot and cold pixels.
+     The stripe and bad-pixel fixes must change pixels, each kernel must run
+     once per batch, and the first 4 DNGs must be byte-identical to the
+     port's own CPU conversion;
   4. LZMA and LJ92 variants of a short 1080p clip through the card, whose
      DNGs must be byte-identical to the uncompressed clip's.
 
-Without a CUDA card it exits non-zero and prints no result. The line before
-the last is a JSON summary of the kernels; the last line of stdout is
-``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
-Scratch files go to build/smoke/ under the repository and are removed at
-the end.
+Each convert path runs with every kernel launch count set to 0 just before
+it and read just after.
+
+``python3 chip_smoke.py --breakdown N`` instead measures where the time of
+the flags-on convert goes (PERF.md section 5): each layer's device time per
+1080p batch of 16 and its host enqueue time, the once-per-clip calibration,
+two N-frame flags-on converts and one under torch.profiler (device busy
+share, device time by kernel). Without a CUDA card it exits non-zero and prints no
+result. The line before the last is a JSON summary of the kernels; the last
+line of stdout is ``{"ok": true, "device": {"platform": "gpu", "kind": ...,
+"count": ...}}``. Scratch files go to build/smoke/ under the repository and
+are removed at the end.
 """
 
 from __future__ import annotations
@@ -39,9 +58,25 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-KERNEL_SOURCE = "mlvfs_tpu_torch/csrc/unpack.cu"
-KERNEL_REPLACES = "mlvfs_tpu/ops/unpack.py:96"
+KERNELS = {  # name -> (source, the TPU kernel it replaces)
+    "unpack": ("mlvfs_tpu_torch/csrc/unpack.cu", "mlvfs_tpu/ops/unpack.py:96"),
+    "chroma_smooth": ("mlvfs_tpu_torch/csrc/chroma.cu", "mlvfs_tpu/ops/chroma_pallas.py:156"),
+}
 DNG_HEADER = 65536
+# the card's published peaks (NVIDIA H100 SXM data sheet, at the 700 W limit):
+# HBM3 bandwidth, and int32 ALU operations: 132 SMs x 64 int32 lanes x
+# 1.98 GHz, a quarter of the 67 TFLOP/s float32 rate (half the lanes, and an
+# FMA counts two there)
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+
+
+def bound(n_bytes: float, n_ops: float):
+    """(least time in ms, "bytes" or "operations"): each input read once and
+    each output written once at the HBM rate, against the operations at the
+    int32 rate; the larger bounds."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / INT32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
 def check(ok: bool, what: str) -> None:
@@ -75,7 +110,8 @@ def _median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 
 
 def kernel_vs_plain():
-    """Phase 2. Returns (max_abs_err, kernel_ms, plain_ms) at 1080p/14 bpp/B=16."""
+    """Phase 2. Returns (max_abs_err, kernel_ms, plain_ms, bound_ms, bound_by)
+    at 1080p/14 bpp/B=16."""
     import torch
 
     from mlvfs_tpu_torch.ops import unpack
@@ -110,15 +146,76 @@ def kernel_vs_plain():
               f"({moved / kernel_ms / 1e6:.1f} GB/s, runs {kernel_a:.4f}/{kernel_b:.4f}), "
               f"plain {plain_ms:.4f} ms (runs {plain_a:.4f}/{plain_b:.4f})")
         if bpp == 14:
-            headline = (kernel_ms, plain_ms)
-    print(f"unpack kernel vs plain: bit-equal in all cases, max_abs_err {max_err}")
-    return max_err, headline[0], headline[1]
+            # 3 integer operations a pixel: its shift(s), or and mask
+            headline = (kernel_ms, plain_ms, *bound(moved, 3 * b * h * w))
+    print(f"unpack kernel vs plain: bit-equal in all cases, max_abs_err {max_err}; "
+          f"bound at 14 bpp {headline[2]:.4f} ms ({headline[3]})")
+    return (max_err, *headline)
+
+
+def chroma_ops(method: int, n_cells: int) -> int:
+    """Integer operations the smoothing needs: per cell its green mean (add,
+    halve) and two chroma differences, once; two median networks of 2
+    operations a compare-exchange; the skip rule, the two sums, clamps and
+    black offsets (13)."""
+    from mlvfs_tpu_torch.ops import medians
+
+    k = {2: 5, 3: 9, 5: 25}[method]
+    network = len(medians.prune(medians.NETWORKS[k], k // 2))
+    return n_cells * (4 + 2 * 2 * network + 13)
+
+
+def chroma_vs_plain(card: str):
+    """Phase 2b. Returns {method: (max_abs_err, kernel_ms, plain_ms, bound_ms,
+    bound_by)} at 1080p/B=16, black 2047."""
+    import torch
+
+    from mlvfs_tpu_torch.ops import chroma_smooth as cs
+
+    gen = torch.Generator(device="cuda").manual_seed(2025)
+    max_err = 0
+    for method in cs.METHODS:
+        for black in (2047, 2048):
+            for b, h, w in [(16, 1080, 1920), (4, 727, 1808), (1, 8, 8), (1, 8, 16), (1, 16, 8)]:
+                imgs = torch.randint(black - 40, 16000, (b, h, w), dtype=torch.int32,
+                                     device="cuda", generator=gen)
+                imgs[:, 10:20, 5:35] = black
+                imgs = imgs.to(torch.int16)
+                got = cs.chroma_smooth_batch(imgs, method, black)
+                want = cs.chroma_smooth_batch_plain(imgs, method, black)
+                torch.cuda.synchronize()
+                err = int(((got.int() & 0xFFFF) - (want.int() & 0xFFFF)).abs().max())
+                max_err = max(max_err, err)
+                check(torch.equal(got, want), f"chroma kernel == plain at method={method} "
+                      f"black={black} {h}x{w} B={b} (max err {err})")
+    print(f"chroma kernel vs plain: bit-equal in all cases, max_abs_err {max_err}")
+    out = {}
+    b, h, w, black = 16, 1080, 1920, 2047
+    imgs = torch.randint(black - 40, 16000, (b, h, w), dtype=torch.int32, device="cuda",
+                         generator=gen).to(torch.int16)
+    lut_bytes = (1 << 16) * 4 + 14 * 32768 * 4
+    moved = 2 * imgs.numel() * 2 + lut_bytes
+    for method in cs.METHODS:
+        plain_a = _median_ms(lambda: cs.chroma_smooth_batch_plain(imgs, method, black), reps=7)
+        kernel_a = _median_ms(lambda: cs.chroma_smooth_batch(imgs, method, black))
+        kernel_b = _median_ms(lambda: cs.chroma_smooth_batch(imgs, method, black))
+        plain_b = _median_ms(lambda: cs.chroma_smooth_batch_plain(imgs, method, black), reps=7)
+        kernel_ms, plain_ms = min(kernel_a, kernel_b), min(plain_a, plain_b)
+        ny, nx = cs.cell_window(h, w)
+        bound_ms, bound_by = bound(moved, chroma_ops(method, b * ny * nx))
+        print(f"chroma cs{method}x{method} {w}x{h} B={b}: kernel {kernel_ms:.4f} ms "
+              f"({moved / kernel_ms / 1e6:.1f} GB/s, runs {kernel_a:.4f}/{kernel_b:.4f}), "
+              f"plain {plain_ms:.4f} ms (runs {plain_a:.4f}/{plain_b:.4f}); bound "
+              f"{bound_ms:.4f} ms ({bound_by}; bytes alone {moved / HBM_BYTES_PER_S * 1e3:.4f} ms), "
+              f"kernel at {100 * bound_ms / kernel_ms:.1f} % of it [{card}]")
+        out[method] = (max_err, kernel_ms, plain_ms, bound_ms, bound_by)
+    return out
 
 
 def synth_clip(path, frames, width, height, camera_model, camera_name, frame_data=None, **kw):
     import numpy as np
 
-    from mlvfs_tpu.format import synth
+    from mlvfs_tpu_torch.format import synth
 
     os.makedirs(os.path.dirname(path), exist_ok=True)
     spec = synth.SynthSpec(width=width, height=height, frames=frames, bpp=14,
@@ -139,14 +236,26 @@ def read(path) -> bytes:
         return f.read()
 
 
-def convert_cli(clip, outdir, device):
-    """One default conversion through the CLI. Returns (seconds, launches)."""
+def reset_launches():
+    from mlvfs_tpu_torch.ops import chroma_smooth, unpack
+
+    unpack.KERNEL_LAUNCHES = chroma_smooth.KERNEL_LAUNCHES = 0
+
+
+def read_launches() -> dict:
+    from mlvfs_tpu_torch.ops import chroma_smooth, unpack
+
+    return {"unpack": unpack.KERNEL_LAUNCHES, "chroma_smooth": chroma_smooth.KERNEL_LAUNCHES}
+
+
+def convert_cli(clip, outdir, device, *flags):
+    """One conversion through the CLI. Returns (seconds, unpack launches)."""
     from mlvfs_tpu_torch import cli
     from mlvfs_tpu_torch.ops import unpack
 
     before = unpack.KERNEL_LAUNCHES
     t0 = time.perf_counter()
-    rc = cli.main(["convert", clip, "-o", outdir, "--device", device])
+    rc = cli.main(["convert", clip, "-o", outdir, "--device", device, *flags])
     seconds = time.perf_counter() - t0
     check(rc == 0, f"convert {clip} exit code 0 (got {rc})")
     return seconds, unpack.KERNEL_LAUNCHES - before
@@ -206,6 +315,83 @@ def main_path(work, device="cuda", frames_5d3=64, frames_eosm=32, size_5d3=(1920
     return total + launches
 
 
+FLAGS_ON = ["--deflicker", "3000", "--cs3x3", "--stripes", "--bad-pix"]
+
+
+def flagged_frames(frames, width, height, seed=77):
+    """5D3 test frames with a period-8 column gain and hot/cold pixels at
+    green sites (which chroma smoothing leaves alone)."""
+    import numpy as np
+
+    from mlvfs_tpu_torch.format import synth
+
+    spec = synth.SynthSpec(width=width, height=height, frames=frames)
+    rng = np.random.default_rng(seed)
+    data = np.stack([synth.make_frame_data(spec, rng) for _ in range(frames)]).astype(np.float64)
+    gain = np.array([1.0, 1.0, 1.04, 0.985, 1.0, 1.01, 0.97, 1.0])[np.arange(width) % 8]
+    data = spec.black + (data - spec.black) * gain
+    cold = [(20, 31), (101, 400), (500, 1201)]  # (y, x): even y, odd x = green
+    hot = [(9, 14), (13, 10), (41, 62)]  # odd y, even x = green, in the dark corner
+    for y, x in cold:
+        data[:, y, x] = 0
+    for y, x in hot:
+        data[:, y, x] = 16383
+    return np.clip(data, 0, 16383).astype(np.uint16), cold + hot
+
+
+def flags_on_path(work, card, device="cuda", frames=48, size=(1920, 1080), batch_size=16):
+    """Phase 3b: the flags-on convert of a 1080p 5D3 clip. Returns the
+    launches per kernel."""
+    import numpy as np
+
+    from mlvfs_tpu_torch.pipeline.config import ProcessingConfig
+    from mlvfs_tpu_torch.pipeline.convert import convert_clip
+    from mlvfs_tpu_torch.utils import metrics
+
+    w, h = size
+    data, bad = flagged_frames(frames, w, h)
+    clip = os.path.join(work, "flags", "MFLAGS.MLV")
+    synth_clip(clip, frames, w, h, 0x80000285, "Canon EOS 5D Mark III", frame_data=data)
+    out = os.path.join(work, "flags_out")
+    metrics.reset()
+    reset_launches()
+    secs, _ = convert_cli(clip, out, device, *FLAGS_ON)
+    launches = read_launches()
+    stages = metrics.snapshot()["stage_seconds"]
+    files = dng_files(out)
+    check(len(files) == frames, f"flags-on: {frames} DNGs (got {len(files)})")
+    want = math.ceil(frames / batch_size) if device.startswith("cuda") else 0
+    for name, n in launches.items():
+        check(n == want, f"flags-on: {name} kernel launches {n} == batches {want}")
+
+    payload0 = np.frombuffer(read(files[0]), "<u2", offset=DNG_HEADER).reshape(h, w)
+    for y, x in bad:
+        check(payload0[y, x] != data[0, y, x], f"flags-on: bad pixel ({x}, {y}) fixed")
+    green = (np.arange(h)[:, None] + np.arange(w)[None, :]) % 2 == 1
+    striped = np.isin(np.arange(w) % 8, (2, 3, 5, 6))[None, :] & green
+    restriped = int((payload0 != data[0])[striped].sum())
+    check(restriped > 10000, f"flags-on: stripe correction changed green pixels ({restriped})")
+    # columns 0 and 1 are the reference columns, whose gain is exactly one
+    reference = np.isin(np.arange(w) % 8, (0, 1))[None, :] & green
+    untouched = int((payload0 != data[0])[reference].sum())
+    check(untouched <= len(bad), f"flags-on: reference green columns untouched ({untouched})")
+
+    n_ref = 4
+    ref_out = os.path.join(work, "flags_cpu")
+    convert_clip(clip, ref_out, ProcessingConfig(
+        device="cpu", use_sidecar_idx=False, deflicker=3000, chroma_smooth=3, fix_stripes=True,
+        fix_bad_pixels=1), frames=range(n_ref))
+    for p, q in zip(files[:n_ref], dng_files(ref_out)):
+        check(read(p) == read(q), f"flags-on {os.path.basename(p)}: {device} == cpu, byte for byte")
+    mb = frames * (DNG_HEADER + w * h * 2) / 1e6
+    print(f"convert 5D3 {w}x{h} 14-bit {' '.join(FLAGS_ON)}, {frames} frames, --device {device}: "
+          f"{secs:.3f} s, {frames / secs:.1f} f/s, {mb / secs:.1f} MB/s written; stages (s, "
+          f"overlapping) " + ", ".join(f"{k} {v:.3f}" for k, v in sorted(stages.items()))
+          + f"; launches {launches}; {len(bad)} bad pixels fixed, stripes changed {restriped} "
+          f"green px of frame 0; first {n_ref} DNGs == cpu conversion [{card}]")
+    return launches
+
+
 def compressed_variants(work, device="cuda", frames=8, size=(1920, 1080)):
     """Phase 4: LZMA and LJ92 clips convert to the uncompressed clip's DNGs."""
     w, h = size
@@ -228,6 +414,95 @@ def compressed_variants(work, device="cuda", frames=8, size=(1920, 1080)):
     print(f"compressed variants {w}x{h}, {frames} frames: LZMA and LJ92 DNGs == uncompressed")
 
 
+def breakdown(work, card, frames):
+    """``--breakdown N``: the per-layer times of the flags-on path."""
+    import numpy as np
+    import torch
+
+    from mlvfs_tpu_torch.ops import chroma_smooth, histogram, pixels, stripes, unpack
+
+    from mlvfs_tpu_torch.utils import metrics
+
+    w, h, b, black, white = 1920, 1080, 16, 2048, 15000
+    data, _ = flagged_frames(b, w, h)
+    t0 = time.perf_counter()
+    bad = pixels.detect_bad_pixels(data[0], w, h, black, False, 0, 0)
+    t1 = time.perf_counter()
+    gains, _ = stripes.compute_correction(data[0], black, white, w, frame_size_bytes=w * h * 14 // 8)
+    t2 = time.perf_counter()
+    print(f"once per clip, host: bad-pixel detection {1e3 * (t1 - t0):.1f} ms ({len(bad)} px), "
+          f"stripe calibration {1e3 * (t2 - t1):.1f} ms [{card}]")
+    imgs = torch.from_numpy(data.view(np.int16)).cuda()
+    words = torch.randint(-32768, 32768, (b, unpack.words_for_pixels(h * w, 14)),
+                          dtype=torch.int16, device="cuda")
+    layers = [
+        ("unpack kernel", lambda: unpack.unpack_batch(words, 14, h, w)),
+        ("deflicker median", lambda: histogram.deflicker_median(imgs, (1 << 14) + 1)),
+        ("bad-pixel fix", lambda: pixels.fix_pixel_list_batch(imgs, bad, black, 0, 0, False)),
+        ("chroma kernel cs3x3", lambda: chroma_smooth.chroma_smooth_batch(imgs, 3, black)),
+        ("stripe apply", lambda: stripes.apply_correction_batch(imgs, gains, black, white)),
+    ]
+    for name, fn in layers:
+        device_ms = _median_ms(fn)
+        host = []
+        for _ in range(20):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            host.append(1e3 * (time.perf_counter() - t0))
+        print(f"per batch of {b} at {w}x{h}: {name}: device {device_ms:.4f} ms, host enqueue "
+              f"{sorted(host)[10]:.4f} ms [{card}]")
+
+    clip = os.path.join(work, "bd", "MBD.MLV")
+    synth_clip(clip, frames, w, h, 0x80000285, "Canon EOS 5D Mark III",
+               frame_data=flagged_frames(frames, w, h)[0])
+    cal = os.path.splitext(clip)[0] + ".CAL"
+    for run in ("run 1", "run 2", "profiled"):
+        if os.path.exists(cal):
+            os.unlink(cal)  # every run calibrates, as a first conversion does
+        out = os.path.join(work, "bd_out")
+        shutil.rmtree(out, ignore_errors=True)
+        metrics.reset()
+        if run != "profiled":
+            secs, _ = convert_cli(clip, out, "cuda", *FLAGS_ON)
+            stages = metrics.snapshot()["stage_seconds"]
+            print(f"flags-on convert {w}x{h}, {frames} frames, {run}: {secs:.3f} s, "
+                  f"{frames / secs:.1f} f/s; stages (s, overlapping) "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in sorted(stages.items())) + f" [{card}]")
+            continue
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            convert_cli(clip, out, "cuda", *FLAGS_ON)
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+        dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
+        busy, end = 0.0, None
+        for s, e in spans:
+            if end is None or s > end:
+                busy += e - s
+                end = e
+            elif e > end:
+                busy += e - end
+                end = e
+        by_name = {}
+        for e in dev:
+            total, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (total + e.time_range.elapsed_us(), n + 1)
+        print(f"profiled flags-on convert: wall {wall_ms:.1f} ms, device busy {busy / 1e3:.1f} ms "
+              f"({100 * busy / 1e3 / wall_ms:.1f} % of wall) [{card}]")
+        for name, (total, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
+            print(f"  device {total / 1e3:8.3f} ms  x{n:<5d} {name[:90]}")
+
+
+def check_no_reference(what: str) -> None:
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "mlvfs_tpu"))
+    check(not loaded, f"{what} without jax and without mlvfs_tpu (loaded: {loaded[:5]})")
+
+
 def main() -> int:
     import torch
 
@@ -236,37 +511,50 @@ def main() -> int:
         return 1
     sys.path.insert(0, ROOT)
     from mlvfs_tpu_torch import _build
-    from mlvfs_tpu_torch.ops import unpack
 
-    check("jax" not in sys.modules, "the port runs without jax")
+    check_no_reference("the port loads")
     card = card_line()
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}, "
           f"device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    _build.library("unpack")
-    print(f"built {KERNEL_SOURCE} ({_build.library_path('unpack')}) in "
+    _build.build_all()
+    print(f"built {', '.join(src for src, _ in KERNELS.values())} in parallel in "
           f"{time.perf_counter() - t0:.2f} s")
-
-    max_err, kernel_ms, plain_ms = kernel_vs_plain()
 
     work = os.path.join(ROOT, "build", "smoke")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
+    if len(sys.argv) == 3 and sys.argv[1] == "--breakdown":
+        try:
+            breakdown(work, card, int(sys.argv[2]))
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        check_no_reference("the port ran")
+        return 0
+
+    unpack_row = kernel_vs_plain()
+    chroma_rows = chroma_vs_plain(card)
     try:
-        unpack.KERNEL_LAUNCHES = 0
-        launches = main_path(work, card=card)
-        check(launches > 0, "the main path launched the unpack kernel")
+        reset_launches()
+        default_launches = main_path(work, card=card)
+        check(default_launches > 0, "the default path launched the unpack kernel")
+        check(read_launches()["chroma_smooth"] == 0, "the default path runs no chroma smoothing")
+        flags_launches = flags_on_path(work, card)
         compressed_variants(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    check("jax" not in sys.modules, "the port ran without jax")
+    check_no_reference("the port ran")
 
+    rows = {"unpack": unpack_row, "chroma_smooth": chroma_rows[3]}  # the path's --cs3x3
+    launches = {"unpack": default_launches + flags_launches["unpack"],
+                "chroma_smooth": flags_launches["chroma_smooth"]}
     print(json.dumps({"kernels": [{
-        "name": "unpack", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES, "launches": launches, "max_abs_err": max_err,
-        "ms": kernel_ms, "plain_ms": plain_ms,
-    }]}))
+        "name": name, "route": "cuda", "source": KERNELS[name][0],
+        "replaces": KERNELS[name][1], "launches": launches[name], "max_abs_err": err,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None,  # no single PyTorch call computes either function
+    } for name, (err, ms, plain_ms, bound_ms, bound_by) in rows.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

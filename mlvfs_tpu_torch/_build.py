@@ -12,6 +12,7 @@ finds) the library. A missing ``nvcc`` or a failed build raises.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import hashlib
 import os
@@ -39,6 +40,23 @@ _SIGNATURES = {
                 ctypes.c_longlong,  # n_words
                 ctypes.c_longlong,  # n_pixels
                 ctypes.c_int,  # bpp
+                ctypes.c_void_p,  # cudaStream_t
+            ],
+        ),
+    },
+    "chroma": {
+        "mlvfs_chroma_smooth": (
+            ctypes.c_int,
+            [
+                ctypes.c_void_p,  # imgs u16 (batch, height, width)
+                ctypes.c_void_p,  # out u16 (batch, height, width)
+                ctypes.c_void_p,  # raw2ev int32[65536]
+                ctypes.c_void_p,  # ev2raw int32[14 * 32768]
+                ctypes.c_longlong,  # batch
+                ctypes.c_longlong,  # height
+                ctypes.c_longlong,  # width
+                ctypes.c_int,  # method (2, 3 or 5)
+                ctypes.c_int,  # black
                 ctypes.c_void_p,  # cudaStream_t
             ],
         ),
@@ -77,6 +95,17 @@ def _compile(name: str, out: str) -> None:
             f"nvcc failed building {name}.cu (rc={proc.returncode}):\n{proc.stdout}{proc.stderr}"
         )
     os.replace(tmp, out)  # atomic: a concurrent build never loads a partial file
+
+
+def build_all() -> None:
+    """Build every kernel source that has no library yet, one nvcc process
+    per source, all started together, and bind them all."""
+    missing = [n for n in _SIGNATURES if not os.path.isfile(library_path(n))]
+    if missing:
+        with concurrent.futures.ThreadPoolExecutor(len(missing)) as pool:
+            list(pool.map(lambda n: _compile(n, library_path(n)), missing))
+    for name in _SIGNATURES:
+        library(name)
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -6,9 +6,12 @@ Counterpart of ``mlvfs_tpu/cli.py`` for the ported slice:
     python -m mlvfs_tpu_torch convert --mlv-dir=/path/to/clips -o /out
     python -m mlvfs_tpu_torch info CLIP.MLV
 
-The flag surface is the reference's, plus ``--device``. Flags whose slices
-are not ported yet (the processing flags, ``--devices N>1``) parse, then the
-command fails with a message naming the flag.
+The flag surface is the reference's, plus ``--device``. Ported: the
+processing flags ``--deflicker``, ``--cs2x2/--cs3x3/--cs5x5``, ``--stripes``,
+``--bad-pix`` and ``--really-bad-pix``. Flags whose slices are not ported yet
+(``--fix-pattern-noise``, ``--dual-iso*``, ``--stripes-batch-cal``,
+``--devices N>1``) parse, then the command fails with a message naming the
+flag.
 """
 
 from __future__ import annotations
@@ -86,7 +89,7 @@ def config_from_args(args) -> ProcessingConfig:
 
 
 def _iter_clips(path: str):
-    from mlvfs_tpu.format.reader import is_mlv_name
+    from .format.reader import is_mlv_name
 
     if os.path.isdir(path):
         for name in sorted(os.listdir(path)):
@@ -153,7 +156,7 @@ def cmd_convert(args) -> int:
 
 
 def cmd_info(args) -> int:
-    from mlvfs_tpu.format.reader import MLVClip
+    from .format.reader import MLVClip
 
     for clip_path in _iter_clips(args.input):
         with MLVClip(clip_path) as clip:

@@ -4,14 +4,17 @@ Counterpart of ``mlvfs_tpu/pipeline/convert.py``, the replacement for the
 reference's FUSE read path (main.c:1410-1576, 908-1005): batches of packed
 frames stream to the device, the processing pipeline runs per batch, and
 DNGs are written out. The container reader, the LJ92 codec and the DNG/WAV/GIF
-emitters are the reference package's JAX-free host modules, used as they are.
+emitters are the port's own copies of the reference's host modules.
 
 Pipeline stages (overlapped via the prefetch ring in ``stream.py``):
   host (prefetch threads): gather packed payloads / LZMA or LJ92 decode into
       a pinned staging ring, non-blocking H2D copy on a side stream
-  device (main thread, its current stream): unpack kernel → focus-pixel fix
-  host (write pool): D2H readback into pinned memory on a side stream,
-      64 KiB CDNG header render, one writev per DNG
+  device (main thread, its current stream): unpack kernel → the processing
+      pipeline (``kernels.run_pipeline``: deflicker median, focus/bad-pixel
+      fix, chroma-smoothing kernel, stripe correction)
+  host (write pool): D2H readback into pinned memory on a side stream (the
+      frames and, with --deflicker, the batch's medians), 64 KiB CDNG header
+      render with the per-frame levels and BaselineExposure, one writev per DNG
 
 CUDA ordering, made explicit rather than left to stream defaults:
   - a staging buffer is refilled only after the event recorded behind its
@@ -36,9 +39,8 @@ import threading
 import numpy as np
 import torch
 
-from mlvfs_tpu.emit import dng as dng_emit
-from mlvfs_tpu.format.reader import MLVClip
-
+from ..emit import dng as dng_emit
+from ..format.reader import MLVClip
 from ..ops import unpack as unpack_ops
 from . import kernels
 from .config import ProcessingConfig
@@ -201,8 +203,7 @@ class ClipConverter:
         """Host decode of LJ92 clips → (B, H*W) tiled samples (de-tiled on the
         device). One native call decodes the whole batch across hardware
         threads; a corrupt frame stays blank (main.c:598-681)."""
-        from mlvfs_tpu.codecs import lj92 as lj92_codec
-
+        from ..codecs import lj92 as lj92_codec
         from ..utils import log
 
         fh = self.fh0
@@ -290,27 +291,32 @@ class ClipConverter:
         event.record(torch.cuda.current_stream(self.device))
         return event
 
-    def _to_host(self, imgs: torch.Tensor, computed) -> np.ndarray:
-        """(B, H, W) tensor → host u16 array, on any thread.
+    def _to_host(self, tensors, computed):
+        """Device tensors → host numpy arrays of the same dtypes, on any thread.
 
         On CUDA the readback stream first waits on ``computed`` (from
         :meth:`_computed` on the thread that ran the batch), then copies into
         pinned memory: a pageable destination makes CUDA stage the copy
-        through a bounce buffer, measured about 25x slower on an H100 host.
-        The pinned block returns to PyTorch's host-allocator cache when the
-        array is dropped. ``imgs`` stays referenced by the caller until the
-        copy has completed, so its device memory is not reused early."""
+        through a bounce buffer, measured about 25x slower on an H100 80GB
+        HBM3 (700 W) host.
+        The pinned blocks return to PyTorch's host-allocator cache when the
+        arrays are dropped. The tensors stay referenced by the caller until
+        the copies have completed, so their device memory is not reused
+        early."""
         if not self._cuda:
-            return imgs.contiguous().numpy().view("<u2")
+            return [t.contiguous().numpy() for t in tensors]
         stream = self._readback_stream
         with torch.cuda.stream(stream):
             stream.wait_event(computed)
-            host = torch.empty(imgs.shape, dtype=imgs.dtype, pin_memory=True)
-            host.copy_(imgs, non_blocking=True)
+            hosts = []
+            for t in tensors:
+                host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                host.copy_(t, non_blocking=True)
+                hosts.append(host)
             copied = torch.cuda.Event()
             copied.record(stream)
         copied.synchronize()
-        return host.numpy().view("<u2")
+        return [h.numpy() for h in hosts]
 
     # ------------------------------------------------------------------ #
 
@@ -387,8 +393,8 @@ class ClipConverter:
         """Write the clip's non-DNG virtual-directory entries next to the DNGs
         (main.c:1308-1320): <base>.wav when the clip has audio, <base>.log
         (camera debug log, may be empty), <base>_PREVIEW.gif."""
-        from mlvfs_tpu.emit.gif import build_gif, gif_frame_ids
-        from mlvfs_tpu.emit.wav import build_wav
+        from ..emit.gif import build_gif, gif_frame_ids
+        from ..emit.wav import build_wav
 
         clip = self.clip
         written = []
@@ -404,7 +410,8 @@ class ClipConverter:
         if clip.frame_count:
             frame_ids = gif_frame_ids(clip.frame_count)
             imgs = self.decode_batch(frame_ids)
-            batch = self._to_host(imgs, self._computed())
+            (batch,) = self._to_host([imgs], self._computed())
+            batch = batch.view("<u2")
             decoded = {i: batch[bi] for bi, i in enumerate(frame_ids)}
             gif_bytes = build_gif(clip, decode_fn=decoded.__getitem__)
         else:
@@ -421,14 +428,20 @@ class ClipConverter:
         from ..utils import StageTimer, metrics
 
         cfg = self.config
+        medians = info.pop("deflicker_medians", None)
         with StageTimer("readback"):
-            imgs_np = self._to_host(imgs, computed)
+            host = self._to_host([imgs] if medians is None else [imgs, medians], computed)
+        imgs_np = host[0].view("<u2")
+        if medians is not None:
+            info["exposure_bias"] = kernels.exposure_bias(
+                host[1], cfg.deflicker, self.fh0.raw_info.black_level
+            )
         metrics.count("frames", len(indices))
         metrics.count("bytes_out", int(imgs_np.nbytes))
         strips = None
         if cfg.compress == "lj92":
             # one native call per batch, frames fanned over hardware threads
-            from mlvfs_tpu.codecs import lj92 as lj92_codec
+            from ..codecs import lj92 as lj92_codec
 
             with StageTimer("lj92_encode"):
                 strips = lj92_codec.encode_batch(imgs_np, ncomp=2, bits=16)
@@ -443,18 +456,27 @@ class ClipConverter:
             if ident != tpl_ident:
                 tpl = self._header_template(fh, basename, compression=compression)
                 tpl_ident = ident
+            black, white, bias = self._info_fields(info, bi)
             path = os.path.join(outdir, dng_frame_name(basename, i))
             if strips is not None:
                 header = tpl.render(
-                    fh, black_level=info["black_level"], white_level=info["white_level"],
+                    fh, black_level=black, white_level=white, exposure_bias=bias,
                     strip_byte_count=len(strips[bi]),
                 )
                 self._write_dng(path, header, np.frombuffer(strips[bi], np.uint8))
             else:
                 header = tpl.render(
-                    fh, black_level=info["black_level"], white_level=info["white_level"]
+                    fh, black_level=black, white_level=white, exposure_bias=bias
                 )
                 self._write_dng(path, header, imgs_np[bi])
+
+    @staticmethod
+    def _info_fields(info, bi):
+        """Per-frame header mutations from the processed-batch info dict
+        (the dual-ISO slice adds per-frame levels here)."""
+        eb = info.get("exposure_bias")
+        bias = (int(eb[bi][0]), int(eb[bi][1])) if eb is not None else None
+        return info["black_level"], info["white_level"], bias
 
     def _header_template(self, fh, basename, compression="none"):
         """Template cache keyed on the metadata blocks that feed the header

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch twins, on the card.
+"""The port's CUDA kernels against their plain PyTorch twins, on the card,
+and the card's conversions against the CPU's.
 
 The tests marked ``cuda`` skip without a card. This file imports torch and
 the port only (no jax), so the GPU machine runs it on its own:
@@ -14,9 +15,9 @@ import numpy as np
 import pytest
 import torch
 
-from mlvfs_tpu.format import synth
+from mlvfs_tpu_torch.format import synth
 from mlvfs_tpu_torch import _build
-from mlvfs_tpu_torch.ops import pixels, unpack
+from mlvfs_tpu_torch.ops import chroma_smooth, pixels, unpack
 from mlvfs_tpu_torch.pipeline.config import ProcessingConfig
 from mlvfs_tpu_torch.pipeline.convert import convert_clip
 
@@ -97,6 +98,71 @@ def test_convert_on_card_matches_cpu(compression, tmp_path):
         trees.append({n: (out / n).read_bytes() for n in sorted(os.listdir(out))})
     assert list(trees[0]) == list(trees[1]) and len(trees[0]) == 8
     assert trees[0] == trees[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", [2, 3, 5])
+def test_chroma_kernel_matches_plain(method):
+    """Bit-equal to the twin at the smoke test's shapes and black levels,
+    with a block of pixels exactly at black (raw2ev = INT_MIN)."""
+    _need_card()
+    rng = np.random.default_rng(method)
+    for b, h, w in [(16, 1080, 1920), (4, 727, 1808), (1, 8, 8), (1, 8, 16), (1, 16, 8)]:
+        for black in (2047, 2048):
+            imgs = rng.integers(black - 40, 16000, (b, h, w)).astype(np.uint16)
+            imgs[:, 10:20, 10:40] = black
+            t = torch.from_numpy(imgs.view(np.int16)).cuda()
+            before = chroma_smooth.KERNEL_LAUNCHES
+            got = chroma_smooth.chroma_smooth_batch(t, method, black)
+            assert chroma_smooth.KERNEL_LAUNCHES == before + 1
+            want = chroma_smooth.chroma_smooth_batch_plain(t, method, black)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (b, h, w, black)
+
+
+@pytest.mark.cuda
+def test_chroma_kernel_refuses_bad_input():
+    _need_card()
+    imgs = torch.zeros((2, 16, 24), dtype=torch.int16, device="cuda")
+    with pytest.raises(TypeError):
+        chroma_smooth.chroma_smooth_batch(imgs.to(torch.int32), 3, 2048)
+    with pytest.raises(ValueError):
+        chroma_smooth.chroma_smooth_batch(imgs[:, :, ::2], 3, 2048)
+    with pytest.raises(ValueError):
+        chroma_smooth.chroma_smooth_batch(imgs[:, :, :23], 5, 2048)
+    with pytest.raises(ValueError):
+        chroma_smooth.chroma_smooth_batch(imgs, 4, 2048)
+    assert chroma_smooth.chroma_smooth_batch(imgs[:0], 3, 2048).shape == (0, 16, 24)
+
+
+@pytest.mark.cuda
+def test_flags_convert_on_card_matches_cpu(tmp_path):
+    """The flags-on convert (deflicker, bad pixels, 3x3 chroma smoothing,
+    stripes) writes the same DNGs and .CAL on the card as on the CPU, with
+    one chroma kernel launch per batch."""
+    _need_card()
+    spec = synth.SynthSpec(width=320, height=96, frames=5)
+    rng = np.random.default_rng(spec.seed)
+    data = np.stack([synth.make_frame_data(spec, rng) for _ in range(spec.frames)]).astype(np.float64)
+    gain = np.array([1.0, 1.0, 1.04, 0.985, 1.0, 1.01, 0.97, 1.0])[np.arange(spec.width) % 8]
+    data = spec.black + (data - spec.black) * gain
+    data[:, 20, 30], data[:, 9, 14] = 0, 16383
+    data = np.clip(data, 0, 16383).astype(np.uint16)
+    trees = []
+    for device in ("cuda", "cpu"):
+        src = tmp_path / device / "C.MLV"
+        src.parent.mkdir()
+        synth.write_mlv(str(src), spec, frame_data=data)
+        before = chroma_smooth.KERNEL_LAUNCHES
+        convert_clip(str(src), str(tmp_path / device / "out"), ProcessingConfig(
+            device=device, batch_size=2, deflicker=3000, chroma_smooth=3, fix_stripes=True,
+            fix_bad_pixels=1))
+        assert chroma_smooth.KERNEL_LAUNCHES - before == (3 if device == "cuda" else 0)
+        out = tmp_path / device / "out"
+        tree = {n: (out / n).read_bytes() for n in sorted(os.listdir(out))}
+        tree["CAL"] = (tmp_path / device / "C.CAL").read_bytes()
+        trees.append(tree)
+    assert len(trees[0]) == 6 and trees[0] == trees[1]
 
 
 def test_library_path_follows_source(tmp_path, monkeypatch):

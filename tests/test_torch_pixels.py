@@ -103,3 +103,22 @@ def test_empty_list_is_identity():
     out_of_frame = np.array([[100, 100], [-50, -50]], np.int32)
     out = port.fix_pixel_list_batch(imgs + 5, out_of_frame, 0, 0, 0, False)
     assert torch.equal(out, imgs + 5)
+
+
+@pytest.mark.parametrize("aggressive", [False, True])
+@pytest.mark.parametrize("crop", [(0, 0), (8, 2)])
+def test_detect_bad_pixels_matches_jax(aggressive, crop):
+    """Cold, hot and (aggressive) warm pixels, at any crop, in scan order."""
+    h, w, black = 48, 72, 2048
+    rng = np.random.default_rng(20 + aggressive + crop[0])
+    img = rng.integers(black + 200, black + 1200, (h, w)).astype(np.uint16)
+    ys, xs = rng.integers(6, h - 6, 40), rng.integers(6, w - 6, 40)
+    img[ys[:10], xs[:10]] = black - 200  # cold
+    img[ys[10:25], xs[10:25]] = 16383  # hot: > 2 EV above the neighbours
+    img[ys[25:], xs[25:]] = black + 3000  # warm: 1-2 EV, caught only when aggressive
+    img[0, :] = 0  # outside the detection window
+    want = ref.detect_bad_pixels(img, w, h, black, aggressive, *crop)
+    got = port.detect_bad_pixels(img, w, h, black, aggressive, *crop)
+    assert got.dtype == np.int32 and got.shape[1] == 2
+    np.testing.assert_array_equal(got, want)
+    assert len(got) >= (30 if aggressive else 20)
