@@ -61,6 +61,49 @@ _SIGNATURES = {
             ],
         ),
     },
+    "patternnoise": {
+        "mlvfs_pn_blur_interleaved": (
+            ctypes.c_int,
+            [
+                ctypes.c_void_p,  # img int32 (batch, height, width)
+                ctypes.c_void_p,  # out int32 (batch, height, width)
+                ctypes.c_longlong,  # batch
+                ctypes.c_longlong,  # height (even)
+                ctypes.c_longlong,  # width (even)
+                ctypes.c_void_p,  # cudaStream_t
+            ],
+        ),
+        "mlvfs_pn_blur_split": (
+            ctypes.c_int,
+            [
+                *[ctypes.c_void_p] * 4,  # r, g1, g2, b int32 (batch, height/2, width/2)
+                *[ctypes.c_void_p] * 4,  # their smoothed outputs, same shape
+                ctypes.c_longlong,  # batch
+                ctypes.c_longlong,  # height of the Bayer frame (even)
+                ctypes.c_longlong,  # width of the Bayer frame (even)
+                ctypes.c_void_p,  # cudaStream_t
+            ],
+        ),
+    },
+    "dualiso_preview": {
+        "mlvfs_dualiso_preview": (
+            ctypes.c_int,
+            [
+                ctypes.c_void_p,  # imgs u16 (batch, height, width)
+                ctypes.c_void_p,  # out u16 (batch, height, width)
+                ctypes.c_void_p,  # a float32 (batch,)
+                ctypes.c_void_p,  # b float32 (batch,)
+                ctypes.c_void_p,  # shadow float32 (batch,)
+                ctypes.c_void_p,  # dark_row_start int32 (batch,)
+                ctypes.c_longlong,  # batch
+                ctypes.c_longlong,  # height
+                ctypes.c_longlong,  # width
+                ctypes.c_int,  # black
+                ctypes.c_int,  # white
+                ctypes.c_void_p,  # cudaStream_t
+            ],
+        ),
+    },
 }
 
 _lock = threading.Lock()

@@ -7,11 +7,11 @@ Counterpart of ``mlvfs_tpu/cli.py`` for the ported slice:
     python -m mlvfs_tpu_torch info CLIP.MLV
 
 The flag surface is the reference's, plus ``--device``. Ported: the
-processing flags ``--deflicker``, ``--cs2x2/--cs3x3/--cs5x5``, ``--stripes``,
+processing flags ``--deflicker``, ``--fix-pattern-noise``,
+``--dual-iso-preview``, ``--cs2x2/--cs3x3/--cs5x5``, ``--stripes``,
 ``--bad-pix`` and ``--really-bad-pix``. Flags whose slices are not ported yet
-(``--fix-pattern-noise``, ``--dual-iso*``, ``--stripes-batch-cal``,
-``--devices N>1``) parse, then the command fails with a message naming the
-flag.
+(``--dual-iso``, ``--stripes-batch-cal``, ``--devices N>1``) parse, then the
+command fails with a message naming the flag.
 """
 
 from __future__ import annotations
@@ -35,10 +35,11 @@ def _add_processing_flags(p: argparse.ArgumentParser):
     p.add_argument("--fix-pattern-noise", action="store_true", help="Fix row/column noise in shadows")
     p.add_argument("--stripes", action="store_true", help="Vertical stripe correction in highlights")
     p.add_argument("--stripes-batch-cal", action="store_true",
-                   help="Calibrate stripes from the whole first batch on device instead of frame 0 on host")
+                   help="Calibrate stripes from the whole first batch on device instead of frame 0 on host "
+                        "(not ported yet)")
     p.add_argument("--deflicker", type=int, default=0, metavar="N", help="Per-frame exposure compensation target median")
-    p.add_argument("--dual-iso-preview", action="store_true", help="Preview Dual ISO files (fast)")
-    p.add_argument("--dual-iso", action="store_true", help="Render Dual ISO files (high quality)")
+    p.add_argument("--dual-iso-preview", action="store_true", help="Preview Dual ISO files (fast; frames not detected as dual-ISO are converted normally)")
+    p.add_argument("--dual-iso", action="store_true", help="Render Dual ISO files (high quality; not ported yet)")
     p.add_argument("--amaze-edge", action="store_true", help="Dual ISO interpolation: high quality (default)")
     p.add_argument("--mean23", action="store_true", help="Dual ISO interpolation: fast")
     p.add_argument("--no-alias-map", action="store_true", help="Dual ISO: disable alias map")

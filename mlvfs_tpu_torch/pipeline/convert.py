@@ -10,8 +10,9 @@ Pipeline stages (overlapped via the prefetch ring in ``stream.py``):
   host (prefetch threads): gather packed payloads / LZMA or LJ92 decode into
       a pinned staging ring, non-blocking H2D copy on a side stream
   device (main thread, its current stream): unpack kernel → the processing
-      pipeline (``kernels.run_pipeline``: deflicker median, focus/bad-pixel
-      fix, chroma-smoothing kernel, stripe correction)
+      pipeline (``kernels.run_pipeline``: deflicker median, pattern-noise
+      kernel, dual-ISO preview kernel, focus/bad-pixel fix, chroma-smoothing
+      kernel, stripe correction)
   host (write pool): D2H readback into pinned memory on a side stream (the
       frames and, with --deflicker, the batch's medians), 64 KiB CDNG header
       render with the per-frame levels and BaselineExposure, one writev per DNG
@@ -472,11 +473,17 @@ class ClipConverter:
 
     @staticmethod
     def _info_fields(info, bi):
-        """Per-frame header mutations from the processed-batch info dict
-        (the dual-ISO slice adds per-frame levels here)."""
+        """Per-frame header mutations from the processed-batch info dict:
+        the frame's levels (per frame after a dual-ISO conversion) and its
+        BaselineExposure."""
+        levels = info.get("levels")
+        if levels is not None:
+            black, white = int(levels[bi][0]), int(levels[bi][1])
+        else:
+            black, white = info["black_level"], info["white_level"]
         eb = info.get("exposure_bias")
         bias = (int(eb[bi][0]), int(eb[bi][1])) if eb is not None else None
-        return info["black_level"], info["white_level"], bias
+        return black, white, bias
 
     def _header_template(self, fh, basename, compression="none"):
         """Template cache keyed on the metadata blocks that feed the header

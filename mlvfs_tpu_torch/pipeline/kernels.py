@@ -3,17 +3,20 @@
 Counterpart of ``mlvfs_tpu/pipeline/kernels.py``, the orchestration mirror of
 process_frame (main.c:908-1005). Ported so far, in the reference's order:
 
-  decode → deflicker median → focus px → bad px → chroma smooth → stripes
+  decode → deflicker median → pattern noise → dual-ISO preview →
+  [focus px, bad px (frames not converted)] → chroma smooth → stripes
 
 Per-clip calibration state is computed at the same pipeline position on the
-first batch: bad-pixel detection on the first frame as fix_bad_pixels sees it
-(cs.c:233-312), stripe gains on the fully processed first frame
-(main.c:980-996, stripes.c:97-99). Pattern noise, dual-ISO and the
-whole-batch stripe calibration belong to slices that are not ported yet and
-are refused with NotImplementedError naming the flag, never passed over
-silently. The dual-ISO slice brings the per-frame mixed-batch rules
-(``mlvfs_tpu/pipeline/kernels.py:99-204``: per-frame levels and fix gating),
-which this port must then reproduce.
+first batch that reaches it: bad-pixel detection on the first frame as
+fix_bad_pixels sees it (cs.c:233-312), stripe gains on the fully processed
+first frame (main.c:980-996, stripes.c:97-99). With ``--dual-iso-preview``
+the reference decides per frame whether the frame is dual-ISO
+(main.c:951-973): converted frames get x4 levels, and the others take the
+normal-mode fixes and their own levels in every later step
+(``mlvfs_tpu/pipeline/kernels.py:79-204``). The full dual-ISO
+reconstruction and the whole-batch stripe calibration belong to slices that
+are not ported yet and are refused with NotImplementedError naming the flag,
+never passed over silently.
 """
 
 from __future__ import annotations
@@ -21,22 +24,22 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from .config import ProcessingConfig
 
-# config field → CLI flag, for the flags whose slices are not ported yet
+# config field → (CLI flag, the values of it not ported yet)
 _UNPORTED = (
-    ("fix_pattern_noise", "--fix-pattern-noise"),
-    ("dual_iso", "--dual-iso / --dual-iso-preview"),
-    ("stripes_batch_cal", "--stripes-batch-cal"),
+    ("dual_iso", "--dual-iso", (2,)),
+    ("stripes_batch_cal", "--stripes-batch-cal", (True,)),
 )
 
 
 def check_supported(cfg: ProcessingConfig) -> None:
     """Raise NotImplementedError if ``cfg`` asks for a processing step whose
     slice is not ported to mlvfs_tpu_torch yet."""
-    for field, flag in _UNPORTED:
-        if getattr(cfg, field):
+    for field, flag, values in _UNPORTED:
+        if getattr(cfg, field) in values:
             raise NotImplementedError(
                 f"{flag} ({field}={getattr(cfg, field)!r}) is not ported to "
                 "mlvfs_tpu_torch yet; use mlvfs_tpu for it"
@@ -52,8 +55,8 @@ class ClipCalibration:
     bad_pixels_done: bool = False
     focus_pixel_list: np.ndarray = None
     focus_done: bool = False
-    dual_iso_rggb: bool = None  # Bayer order is per-clip (dual-ISO slice)
-    dual_iso_white20: int = None  # reconstruction white level (dual-ISO slice)
+    dual_iso_rggb: bool = None  # Bayer order is per-clip (full dual-ISO slice)
+    dual_iso_white20: int = None  # reconstruction white level (full dual-ISO slice)
 
 
 def calibration_from_reference(cal) -> ClipCalibration:
@@ -102,7 +105,10 @@ def run_pipeline(imgs, fh, cfg: ProcessingConfig, cal: ClipCalibration, info: di
     With ``--deflicker`` the batch's medians stay on the device as
     ``info["deflicker_medians"]``; the caller turns them into
     ``exposure_bias`` (:func:`exposure_bias`) once they are read back, so
-    the batch costs no synchronisation here.
+    the batch costs no synchronisation here. With ``--dual-iso-preview``
+    and any frame converted, ``info["levels"]`` holds each frame's
+    (black, white) and ``info["black_level"]``/``["white_level"]`` the x4
+    levels.
     """
     check_supported(cfg)
     ri = fh.raw_info
@@ -116,50 +122,95 @@ def run_pipeline(imgs, fh, cfg: ProcessingConfig, cal: ClipCalibration, info: di
         # deflicker target median → BaselineExposure tag (main.c:895-906)
         info["deflicker_medians"] = hist_ops.deflicker_median(imgs, (1 << ri.bits_per_pixel) + 1)
 
-    from ..ops import pixels as pixel_ops
+    if cfg.fix_pattern_noise:
+        from ..ops import patternnoise as pn_ops
 
-    if cal.focus_pixel_list is not None and len(cal.focus_pixel_list):
-        imgs = pixel_ops.fix_pixel_list_batch(
-            imgs, cal.focus_pixel_list, black, crop_x, crop_y, dual_iso=False
-        )
-    if cfg.fix_bad_pixels:
-        if not cal.bad_pixels_done:
-            # detect on the first frame fix_bad_pixels sees (cs.c:233-312)
-            cal.bad_pixel_list = pixel_ops.detect_bad_pixels(
-                _host_frame(imgs[0]),
-                width=fh.xres,
-                height=fh.yres,
-                black=black,
-                aggressive=(cfg.fix_bad_pixels == 2),
-                crop_x=crop_x,
-                crop_y=crop_y,
+        imgs = pn_ops.fix_pattern_noise_batch(imgs, white)
+
+    okv = None  # per-frame dual-ISO outcome (None: dual-ISO off)
+    if cfg.dual_iso == 1:
+        from ..ops import dualiso as di_ops
+
+        imgs, okv = di_ops.hdr_preview_batch(imgs, fh, cal)
+    any_dual = okv is not None and bool(okv.any())
+    mixed = any_dual and not bool(okv.all())
+    if any_dual:
+        # per-frame levels: frames that failed detection keep their levels
+        info["levels"] = [((black * 4, white * 4) if o else (black, white)) for o in okv]
+        info["black_level"] = black * 4
+        info["white_level"] = white * 4
+
+    def per_frame(hi, lo):
+        """Each frame's result: ``hi`` on converted frames, ``lo`` on the others."""
+        return torch.where(torch.as_tensor(okv, device=imgs.device)[:, None, None], hi, lo)
+
+    if okv is None or not okv.all():
+        # the reference's per-frame else-branch (main.c:966-973): every frame
+        # whose dual-ISO conversion did not run gets the normal-mode
+        # focus-pixel and bad-pixel fixes, inside a converted batch too
+        from ..ops import pixels as pixel_ops
+
+        fixed = imgs
+        if cal.focus_pixel_list is not None and len(cal.focus_pixel_list):
+            fixed = pixel_ops.fix_pixel_list_batch(
+                fixed, cal.focus_pixel_list, black, crop_x, crop_y, dual_iso=False
             )
-            cal.bad_pixels_done = True
-        if cal.bad_pixel_list is not None and len(cal.bad_pixel_list):
-            imgs = pixel_ops.fix_pixel_list_batch(
-                imgs, cal.bad_pixel_list, black, crop_x, crop_y, dual_iso=False
-            )
+        if cfg.fix_bad_pixels:
+            if not cal.bad_pixels_done:
+                # detect on the first frame fix_bad_pixels sees (cs.c:233-312):
+                # in a mixed batch, the first frame not converted
+                i0 = int(np.argmin(okv)) if any_dual else 0
+                cal.bad_pixel_list = pixel_ops.detect_bad_pixels(
+                    _host_frame(fixed[i0]),
+                    width=fh.xres,
+                    height=fh.yres,
+                    black=black,
+                    aggressive=(cfg.fix_bad_pixels == 2),
+                    crop_x=crop_x,
+                    crop_y=crop_y,
+                )
+                cal.bad_pixels_done = True
+            if cal.bad_pixel_list is not None and len(cal.bad_pixel_list):
+                fixed = pixel_ops.fix_pixel_list_batch(
+                    fixed, cal.bad_pixel_list, black, crop_x, crop_y, dual_iso=False
+                )
+        imgs = per_frame(imgs, fixed) if any_dual else fixed
 
     if cfg.chroma_smooth:
         from ..ops import chroma_smooth as cs_ops
 
-        imgs = cs_ops.chroma_smooth_batch(imgs, cfg.chroma_smooth, black)
+        m = cfg.chroma_smooth
+        if not any_dual:
+            imgs = cs_ops.chroma_smooth_batch(imgs, m, black)
+        elif not mixed:
+            imgs = cs_ops.chroma_smooth_batch(imgs, m, black * 4)
+        else:
+            # each frame is smoothed under its own black level (main.c:975-978
+            # runs on the per-frame header): smooth under both, pick per frame
+            imgs = per_frame(cs_ops.chroma_smooth_batch(imgs, m, black * 4),
+                             cs_ops.chroma_smooth_batch(imgs, m, black))
 
     if cfg.fix_stripes:
         from ..ops import stripes as stripes_ops
 
         if not cal.stripes_done:
-            # gains from the first processed frame only (stripes.c:97-99)
+            # gains from the first processed frame only, under that frame's
+            # own levels (stripes.c:97-99, main.c:980-996)
+            b0, w0 = (info["black_level"], info["white_level"]) if okv is None else (
+                (black * 4, white * 4) if okv[0] else (black, white))
             cal.stripes_gains, cal.stripes_needed = stripes_ops.compute_correction(
-                _host_frame(imgs[0]),
-                info["black_level"],
-                info["white_level"],
-                fh.xres,
-                frame_size_bytes=ri.frame_size,
+                _host_frame(imgs[0]), b0, w0, fh.xres, frame_size_bytes=ri.frame_size
             )
             cal.stripes_done = True
         if cal.stripes_needed:
-            imgs = stripes_ops.apply_correction_batch(
-                imgs, cal.stripes_gains, info["black_level"], info["white_level"]
-            )
+            gains = cal.stripes_gains
+            if not mixed:
+                imgs = stripes_ops.apply_correction_batch(
+                    imgs, gains, info["black_level"], info["white_level"]
+                )
+            else:  # each frame under its own levels
+                imgs = per_frame(
+                    stripes_ops.apply_correction_batch(imgs, gains, black * 4, white * 4),
+                    stripes_ops.apply_correction_batch(imgs, gains, black, white),
+                )
     return imgs, info

@@ -17,7 +17,8 @@ import torch
 
 from mlvfs_tpu_torch.format import synth
 from mlvfs_tpu_torch import _build
-from mlvfs_tpu_torch.ops import chroma_smooth, pixels, unpack
+from mlvfs_tpu_torch.ops import (chroma_smooth, dualiso, patternnoise, patternnoise_fused,
+                                 pixels, unpack)
 from mlvfs_tpu_torch.pipeline.config import ProcessingConfig
 from mlvfs_tpu_torch.pipeline.convert import convert_clip
 
@@ -161,6 +162,107 @@ def test_flags_convert_on_card_matches_cpu(tmp_path):
         out = tmp_path / device / "out"
         tree = {n: (out / n).read_bytes() for n in sorted(os.listdir(out))}
         tree["CAL"] = (tmp_path / device / "C.CAL").read_bytes()
+        trees.append(tree)
+    assert len(trees[0]) == 6 and trees[0] == trees[1]
+
+
+@pytest.mark.cuda
+def test_pattern_noise_kernels_match_plain():
+    """Kernels #3 and #4 are bit-equal to the plain twin: a multi-block
+    height that is no multiple of the block's 4 rows, the 124- and 128-px
+    widths at and below the window, and int16 pixels of the full range."""
+    _need_card()
+    rng = np.random.default_rng(3)
+    sites = ((0, 0), (0, 1), (1, 0), (1, 1))
+    for b, h, w in [(2, 1080, 1920), (1, 1078, 640), (2, 64, 124), (2, 64, 128), (1, 2, 2)]:
+        x = rng.integers(-32768, 32768, (b, h, w)).astype(np.int32)
+        x[:, :, : w // 2] = 3000 + rng.integers(-40, 40, (b, h, w // 2))
+        t = torch.from_numpy(x).cuda()
+        before = patternnoise_fused.KERNEL_LAUNCHES
+        got = patternnoise_fused.blur_interleaved(t)
+        assert patternnoise_fused.KERNEL_LAUNCHES == before + 1
+        want = patternnoise_fused.blur_interleaved_plain(t)
+        planes = [t[:, py::2, px::2].contiguous() for py, px in sites]
+        got4 = patternnoise.edge_aware_blur(*planes)
+        want4 = patternnoise.edge_aware_blur_plain(*planes)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (b, h, w)
+        assert all(torch.equal(g, v) for g, v in zip(got4, want4)), (b, h, w)
+
+
+@pytest.mark.cuda
+def test_pattern_noise_kernel_refuses_bad_input():
+    _need_card()
+    x = torch.zeros((2, 6, 8), dtype=torch.int32, device="cuda")
+    with pytest.raises(TypeError):
+        patternnoise_fused.blur_interleaved(x.to(torch.int16))
+    with pytest.raises(ValueError):
+        patternnoise_fused.blur_interleaved(x[:, :, :7])
+    with pytest.raises(ValueError):
+        patternnoise_fused.blur_interleaved(x.transpose(1, 2))
+    with pytest.raises(ValueError):
+        patternnoise.edge_aware_blur(x, x, x, x[:1])
+    assert patternnoise_fused.blur_interleaved(x[:0]).shape == (0, 6, 8)
+
+
+@pytest.mark.cuda
+def test_preview_kernel_matches_plain():
+    """Kernel #5 is bit-equal to its twin over the four dark-row phases,
+    with over-white and below-shadow pixels, at heights 5, 6, 7 and 1080."""
+    _need_card()
+    rng = np.random.default_rng(4)
+    for b, h, w in [(8, 1080, 1920), (4, 5, 96), (4, 6, 96), (4, 7, 300)]:
+        imgs = rng.integers(0, 1 << 14, (b, h, w)).astype(np.uint16)
+        imgs[:, h // 4 : h // 2 + 1, : w // 3] = 15007
+        imgs[:, h // 2 :, w // 2 :] = 5
+        t = torch.from_numpy(imgs.view(np.int16)).cuda()
+        a = torch.from_numpy(rng.uniform(0.05, 2.0, b).astype(np.float32)).cuda()
+        bb = torch.from_numpy(rng.uniform(-20, 20, b).astype(np.float32)).cuda()
+        shadow = torch.full((b,), 2948.0, device="cuda")
+        drs = torch.arange(b, dtype=torch.int32, device="cuda") % 4
+        before = dualiso.KERNEL_LAUNCHES
+        got = dualiso.apply_preview(t, a, bb, shadow, drs, 2048, 15000)
+        assert dualiso.KERNEL_LAUNCHES == before + 1
+        want = dualiso.apply_preview_plain(t, a, bb, shadow, drs, 2048, 15000)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (b, h, w)
+        cpu = dualiso.apply_preview(t.cpu(), a.cpu(), bb.cpu(), shadow.cpu(), drs.cpu(), 2048, 15000)
+        assert torch.equal(got.cpu(), cpu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flags", [
+    dict(fix_pattern_noise=True),
+    dict(dual_iso=1, fix_bad_pixels=1, chroma_smooth=2, fix_stripes=True),
+])
+def test_pattern_noise_and_preview_convert_on_card_match_cpu(flags, tmp_path):
+    """--fix-pattern-noise, and --dual-iso-preview on a clip whose third
+    frame is not dual-ISO (a mixed batch) with bad pixels, 2x2 chroma
+    smoothing and stripes, write the same DNGs and .CAL on the card as on
+    the CPU; the kernels launch on the card only."""
+    _need_card()
+    import dataclasses
+
+    spec = synth.SynthSpec(width=640, height=192, frames=5, dual_iso=3)
+    rng = np.random.default_rng(6)
+    data = np.stack([synth.make_frame_data(dataclasses.replace(spec, dual_iso=0) if i == 2 else spec,
+                                           rng) for i in range(spec.frames)])
+    data[2, 101, 200] = 16383
+    trees = []
+    for device in ("cuda", "cpu"):
+        src = tmp_path / device / "C.MLV"
+        src.parent.mkdir()
+        synth.write_mlv(str(src), spec, frame_data=data)
+        before = (patternnoise_fused.KERNEL_LAUNCHES, dualiso.KERNEL_LAUNCHES)
+        convert_clip(str(src), str(tmp_path / device / "out"),
+                     ProcessingConfig(device=device, batch_size=2, **flags))
+        launched = (patternnoise_fused.KERNEL_LAUNCHES - before[0], dualiso.KERNEL_LAUNCHES - before[1])
+        want = (6, 0) if flags.get("fix_pattern_noise") else (0, 3)  # 3 batches
+        assert launched == (want if device == "cuda" else (0, 0))
+        out = tmp_path / device / "out"
+        tree = {n: (out / n).read_bytes() for n in sorted(os.listdir(out))}
+        cal = tmp_path / device / "C.CAL"
+        tree["CAL"] = cal.read_bytes() if cal.exists() else None
         trees.append(tree)
     assert len(trees[0]) == 6 and trees[0] == trees[1]
 

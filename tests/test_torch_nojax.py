@@ -1,7 +1,8 @@
 """The port runs without JAX and without the reference package, refuses a CUDA
 device it does not have, converts with the processing flags its slices have
 ported (held against mlvfs_tpu), and refuses the flags whose slices are not
-ported yet."""
+ported yet (the full dual-ISO reconstruction, the whole-batch stripe
+calibration, multi-GPU batches)."""
 
 import ast
 import os
@@ -28,9 +29,10 @@ def _tree(outdir):
 
 def test_port_imports_no_jax(tmp_path):
     """Importing the port and converting a clip with the ported flags on the
-    CPU loads neither jax nor any module of mlvfs_tpu, and opens no file under
-    mlvfs_tpu/: the EOS M clip's bundled focus-pixel map and the LJ92 codec
-    (--compress-dng) come from the port's own copies."""
+    CPU (pattern noise and the dual-ISO preview among them) loads neither jax
+    nor any module of mlvfs_tpu, and opens no file under mlvfs_tpu/: the EOS M
+    clip's bundled focus-pixel map and the LJ92 codec (--compress-dng) come
+    from the port's own copies."""
     code = (
         "import builtins, ctypes, sys\n"
         "opened = []\n"
@@ -45,12 +47,14 @@ def test_port_imports_no_jax(tmp_path):
         "import mlvfs_tpu_torch, mlvfs_tpu_torch.cli, mlvfs_tpu_torch.pipeline.convert\n"
         "import mlvfs_tpu_torch.ops.unpack, mlvfs_tpu_torch.ops.pixels\n"
         "import mlvfs_tpu_torch.ops.chroma_smooth, mlvfs_tpu_torch.ops.stripes\n"
+        "import mlvfs_tpu_torch.ops.patternnoise_fused, mlvfs_tpu_torch.ops.dualiso\n"
         "from mlvfs_tpu_torch.format import synth\n"
         f"synth.write_mlv({str(tmp_path / 'C.MLV')!r}, width=1808, height=727, frames=2,\n"
         "                camera_model=0x80000331, camera_name='Canon EOS M', audio=True)\n"
         f"rc = mlvfs_tpu_torch.cli.main(['convert', {str(tmp_path / 'C.MLV')!r}, '-o', "
         f"{str(tmp_path / 'out')!r}, '--device', 'cpu', '--cs3x3', '--stripes', "
-        "'--deflicker', '3000', '--bad-pix', '--compress-dng', '--all'])\n"
+        "'--deflicker', '3000', '--bad-pix', '--fix-pattern-noise', '--dual-iso-preview', "
+        "'--compress-dng', '--all'])\n"
         "assert rc == 0, rc\n"
         "print(sorted(m for m in sys.modules if m.startswith('jax')),\n"
         "      sorted(m for m in sys.modules if m == 'mlvfs_tpu' or m.startswith('mlvfs_tpu.')))\n"
@@ -110,9 +114,7 @@ def test_cuda_device_without_card_raises(tmp_path):
     assert not os.path.exists(tmp_path / "out" / "C_000000.dng")
 
 
-@pytest.mark.parametrize("field, value", [
-    ("fix_pattern_noise", True), ("dual_iso", 1), ("dual_iso", 2), ("stripes_batch_cal", True),
-])
+@pytest.mark.parametrize("field, value", [("dual_iso", 2), ("stripes_batch_cal", True)])
 def test_unported_flag_raises(field, value, tmp_path):
     cfg = ProcessingConfig(device="cpu", **{field: value})
     with pytest.raises(NotImplementedError, match=field):
@@ -125,10 +127,11 @@ def test_unported_flag_raises(field, value, tmp_path):
 
 @pytest.mark.parametrize("field, value", [
     ("deflicker", 3000), ("fix_bad_pixels", 1), ("chroma_smooth", 3), ("fix_stripes", True),
+    ("fix_pattern_noise", True), ("dual_iso", 1),
 ])
 def test_ported_flag_matches_jax(field, value, tmp_path):
-    """The flags the flags-on slice ported convert on the CPU, byte-identical
-    to mlvfs_tpu."""
+    """The processing flags ported so far convert on the CPU, byte-identical
+    to mlvfs_tpu (this clip is not dual-ISO: the preview passes it through)."""
     kernels.check_supported(ProcessingConfig(device="cpu", **{field: value}))
     src = str(tmp_path / "C.MLV")
     synth.write_mlv(src, width=64, height=16, frames=3)
@@ -139,8 +142,8 @@ def test_ported_flag_matches_jax(field, value, tmp_path):
     assert _tree(tmp_path / "port") == _tree(tmp_path / "ref")
 
 
-@pytest.mark.parametrize("flags", [["--dual-iso", "--mean23"], ["--fix-pattern-noise"],
-                                   ["--stripes-batch-cal"], ["--devices", "4"]])
+@pytest.mark.parametrize("flags", [["--dual-iso", "--mean23"], ["--stripes-batch-cal"],
+                                   ["--devices", "4"]])
 def test_cli_unported_flag_fails_clearly(flags, tmp_path, capsys):
     src = str(tmp_path / "C.MLV")
     synth.write_mlv(src, width=64, height=16, frames=1)
@@ -151,7 +154,8 @@ def test_cli_unported_flag_fails_clearly(flags, tmp_path, capsys):
     assert not os.path.exists(out)
 
 
-@pytest.mark.parametrize("flags", [["--cs3x3"], ["--deflicker=3000"], ["--bad-pix"]])
+@pytest.mark.parametrize("flags", [["--cs3x3"], ["--deflicker=3000"], ["--bad-pix"],
+                                   ["--fix-pattern-noise"], ["--dual-iso-preview"]])
 def test_cli_ported_flag_matches_jax(flags, tmp_path):
     from mlvfs_tpu import cli as ref_cli
 
