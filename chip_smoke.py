@@ -28,6 +28,10 @@ Phases (any failed check raises, and the script exits non-zero):
   2d. the dual-ISO preview kernel (#5) against its plain twin, bit-equal:
      1080p with B=16 across the four dark-row phases, with over-white and
      below-shadow pixels, and heights 5, 6 and 7; times and share of bound;
+  2e. the alias-map filter kernel (#7) against its plain twin, bit-equal:
+     1080p and 1872x1060 with B=16, heights 5, 12, 13, 64 and 300 at odd and
+     even widths, skip densities 0, 1/2 and 1; times at 1080p/B=16 and the
+     share of the bound counted from the pixels those inputs select;
   3. the default convert path, ``python -m mlvfs_tpu_torch convert CLIP -o
      OUT --device cuda`` through ``cli.main``: a 1920x1080 14-bit 5D Mark III
      clip (64 frames) whose DNG payloads must equal the synthesized frames,
@@ -50,6 +54,14 @@ Phases (any failed check raises, and the script exits non-zero):
      --stripes``. Kernel #5 must run once per batch that holds a detected
      frame, converted frames must carry x4 levels and the others their own,
      and every DNG must be byte-identical to the port's CPU conversion;
+  3e. ``convert CLIP --dual-iso --mean23``: a 1080p dual-ISO 5D Mark III
+     clip (32 frames), and a 1872x1060 EOS M clip (20 frames) whose odd
+     frames are single-ISO, with ``--bad-pix --cs2x2 --stripes``. Kernel #7
+     must run once per batch (each holds a converted frame) and not at all
+     under ``--no-alias-map``; converted frames carry x4 levels, the others
+     their own. The first DNGs are held against the port's CPU conversion
+     of them: headers and frames not converted byte-identical, converted
+     frames within PSNR 90 dB and 3 % of pixels;
   4. LZMA and LJ92 variants of a short 1080p clip through the card, whose
      DNGs must be byte-identical to the uncompressed clip's.
 
@@ -60,11 +72,12 @@ reaches it only from tests and tools): its ``launches`` are 0, and its
 
 ``python3 chip_smoke.py --breakdown N`` instead measures where the time
 goes (PERF.md section 5): each layer's device time per 1080p batch of 16 and
-its host enqueue time (the pattern-noise and preview steps too, the
-preview's host fit with its sample readback included), the once-per-clip
-calibration, and for each of the flags-on, ``--fix-pattern-noise`` and
-``--dual-iso-preview`` programs two N-frame converts and one under
-torch.profiler (device busy share, device time by kernel). Without a CUDA card it exits non-zero and prints no
+its host enqueue time (the pattern-noise, preview and full dual-ISO steps
+too, the preview's host fit and the full path's analysis with their
+readbacks included), the once-per-clip calibration, and for each of the
+flags-on, ``--fix-pattern-noise``, ``--dual-iso-preview`` and ``--dual-iso
+--mean23`` programs two N-frame converts and one under torch.profiler
+(device busy share, device time by kernel). Without a CUDA card it exits non-zero and prints no
 result. The line before the last is a JSON summary of the kernels; the last
 line of stdout is ``{"ok": true, "device": {"platform": "gpu", "kind": ...,
 "count": ...}}``. Scratch files go to build/smoke/ under the repository and
@@ -91,6 +104,7 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
                       "mlvfs_tpu/ops/patternnoise_pallas.py:129"),
     "dualiso_preview": ("mlvfs_tpu_torch/csrc/dualiso_preview.cu",
                         "mlvfs_tpu/ops/dualiso_preview_pallas.py:107"),
+    "alias_filter": ("mlvfs_tpu_torch/csrc/alias.cu", "mlvfs_tpu/ops/alias_pallas.py:110"),
 }
 DNG_HEADER = 65536
 # the card's published peaks (NVIDIA H100 SXM data sheet, at the 700 W limit):
@@ -386,6 +400,57 @@ def preview_vs_plain(card: str):
     return max_err, kernel_ms, plain_ms, bound_ms, bound_by
 
 
+def alias_ops(n_selected: int, n_pixels: int) -> int:
+    """Integer operations the filter chain needs: for each pixel it selects
+    (inner and not skipped) the 6th largest of 37 values, at least 50
+    comparisons (n - k + ceil(log2 C(n, k-1)), n = 37, k = 6), and the blur,
+    44 tap additions, 8 multiplies and 8 shifts; for every pixel the select
+    and its share of the 2x2 cell max (2)."""
+    return n_selected * (50 + 60) + 2 * n_pixels
+
+
+def alias_vs_plain(card: str):
+    """Phase 2e. Returns (max_abs_err, kernel_ms, plain_ms, bound_ms, bound_by)
+    at 1080p/B=16."""
+    import torch
+
+    from mlvfs_tpu_torch.ops import alias
+
+    gen = torch.Generator(device="cuda").manual_seed(2028)
+    max_err = 0
+    cases = [(16, 1080, 1920), (16, 1060, 1872)] + [(3, h, w) for h in (5, 12, 13, 64, 300)
+                                                    for w in (37, 40)]
+    for b, h, w in cases:
+        for density in (0.0, 0.5, 1.0):
+            a = torch.randint(0, 65531, (b, h, w), dtype=torch.int32, device="cuda", generator=gen)
+            skip = torch.rand((b, h, w), device="cuda", generator=gen) < density
+            got = alias.alias_filter(a, skip)
+            want = alias.alias_filter_plain(a, skip)
+            torch.cuda.synchronize()
+            err = int((got.long() - want.long()).abs().max())
+            max_err = max(max_err, err)
+            check(torch.equal(got, want),
+                  f"alias kernel == plain at {h}x{w} B={b} skip {density} (max err {err})")
+    print(f"alias kernel vs plain: bit-equal in all cases, max_abs_err {max_err}")
+    b, h, w = 16, 1080, 1920
+    a = torch.randint(0, 15001, (b, h, w), dtype=torch.int32, device="cuda", generator=gen)
+    skip = torch.rand((b, h, w), device="cuda", generator=gen) < 0.2
+    plain_a = _median_ms(lambda: alias.alias_filter_plain(a, skip), reps=3, warmup=1)
+    kernel_a = _median_ms(lambda: alias.alias_filter(a, skip))
+    kernel_b = _median_ms(lambda: alias.alias_filter(a, skip))
+    plain_b = _median_ms(lambda: alias.alias_filter_plain(a, skip), reps=3, warmup=1)
+    kernel_ms, plain_ms = min(kernel_a, kernel_b), min(plain_a, plain_b)
+    moved = b * h * w * (4 + 1 + 4)
+    n_sel = int((alias.inner_mask(h, w, "cuda") & ~skip).sum())
+    bound_ms, bound_by = bound(moved, alias_ops(n_sel, b * h * w))
+    print(f"alias filter {w}x{h} B={b}, skip density 0.2: kernel {kernel_ms:.4f} ms "
+          f"({moved / kernel_ms / 1e6:.1f} GB/s, runs {kernel_a:.4f}/{kernel_b:.4f}), plain "
+          f"{plain_ms:.4f} ms (runs {plain_a:.4f}/{plain_b:.4f}); bound {bound_ms:.4f} ms ({bound_by}; "
+          f"bytes alone {moved / HBM_BYTES_PER_S * 1e3:.4f} ms, {n_sel} pixels select), kernel at "
+          f"{100 * bound_ms / kernel_ms:.1f} % of it [{card}]")
+    return max_err, kernel_ms, plain_ms, bound_ms, bound_by
+
+
 def synth_clip(path, frames, width, height, camera_model, camera_name, frame_data=None, **kw):
     import numpy as np
 
@@ -411,11 +476,12 @@ def read(path) -> bytes:
 
 
 def _counters():
-    from mlvfs_tpu_torch.ops import chroma_smooth, dualiso, patternnoise, patternnoise_fused, unpack
+    from mlvfs_tpu_torch.ops import (alias, chroma_smooth, dualiso, patternnoise,
+                                     patternnoise_fused, unpack)
 
     return {"unpack": unpack, "chroma_smooth": chroma_smooth,
             "pn_blur_interleaved": patternnoise_fused, "pn_blur_split": patternnoise,
-            "dualiso_preview": dualiso}
+            "dualiso_preview": dualiso, "alias_filter": alias}
 
 
 def reset_launches():
@@ -720,6 +786,100 @@ def dual_iso_path(work, card, device="cuda", frames=32, size=(1920, 1080),
     return total
 
 
+def psnr(a, b) -> float:
+    import numpy as np
+
+    mse = np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)
+    return math.inf if mse == 0 else 10 * math.log10(65535.0 ** 2 / mse)
+
+
+DUAL_ISO_FULL = ["--dual-iso", "--mean23"]
+
+
+def dual_iso_full_path(work, card, device="cuda", frames=32, size=(1920, 1080),
+                       eosm_frames=20, eosm_size=(1872, 1060), batch_size=16, n_ref=4):
+    """Phase 3e: ``--dual-iso --mean23`` on a 1080p dual-ISO 5D3 clip, and on
+    an EOS M clip with single-ISO odd frames plus ``--bad-pix --cs2x2
+    --stripes``; then the 5D3 clip under ``--no-alias-map``. Returns the
+    launches per kernel of the first two converts."""
+    import numpy as np
+
+    from mlvfs_tpu_torch.pipeline.config import ProcessingConfig
+    from mlvfs_tpu_torch.pipeline.convert import convert_clip
+
+    total = {}
+    cases = [
+        ("5D3", size, frames, 0x80000285, "Canon EOS 5D Mark III", False, [], {}),
+        ("EOS M", eosm_size, eosm_frames, 0x80000331, "Canon EOS M", True,
+         ["--bad-pix", "--cs2x2", "--stripes"], dict(fix_bad_pixels=1, chroma_smooth=2, fix_stripes=True)),
+    ]
+    ri_black, ri_white = 2048, 15000
+    clips = {}
+    for tag, (w, h), n, model, name, odd_plain, extra, flags in cases:
+        data = dual_iso_frames(n, w, h, odd_plain, seed=80)
+        clip = os.path.join(work, f"dif_{model:x}", "MDIF.MLV")
+        clips[tag] = clip
+        synth_clip(clip, n, w, h, model, name, frame_data=data, dual_iso=3)
+        out = os.path.join(work, f"dif_{model:x}_out")
+        reset_launches()
+        secs, _ = convert_cli(clip, out, device, *DUAL_ISO_FULL, "--no-idx", *extra)
+        launches = read_launches()
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        files = dng_files(out)
+        check(len(files) == n, f"dual-ISO full {tag}: {n} DNGs (got {len(files)})")
+        batches = math.ceil(n / batch_size) if device.startswith("cuda") else 0
+        check(launches["alias_filter"] == batches,
+              f"dual-ISO full {tag}: alias kernel launches {launches['alias_filter']} == {batches}")
+        check(launches["chroma_smooth"] == 0 and launches["dualiso_preview"] == 0,
+              f"dual-ISO full {tag}: no 16-bit chroma or preview kernel ({launches})")
+        converted = 0
+        for i, p in enumerate(files):
+            dual = not (odd_plain and i % 2)
+            want = (4 * ri_black, 4 * ri_white) if dual else (ri_black, ri_white)
+            got = dng_levels(read(p))
+            check(got == want, f"dual-ISO full {tag} frame {i}: levels {got} == {want}")
+            converted += dual
+        ref_out = os.path.join(work, f"dif_{model:x}_cpu")
+        t0 = time.perf_counter()
+        convert_clip(clip, ref_out, ProcessingConfig(
+            device="cpu", dual_iso=2, hdr_interpolation_method=1, use_sidecar_idx=False, **flags),
+            frames=range(n_ref))
+        cpu_secs = time.perf_counter() - t0
+        worst_psnr, worst_share = math.inf, 0.0
+        for i, (p, q) in enumerate(zip(files[:n_ref], dng_files(ref_out))):
+            raw, ref = read(p), read(q)
+            check(raw[:DNG_HEADER] == ref[:DNG_HEADER],
+                  f"dual-ISO full {tag} {os.path.basename(p)}: header == cpu, byte for byte")
+            if odd_plain and i % 2:
+                check(raw == ref, f"dual-ISO full {tag} {os.path.basename(p)} (not converted): "
+                                  f"{device} == cpu, byte for byte")
+                continue
+            a = np.frombuffer(raw, "<u2", offset=DNG_HEADER)
+            b = np.frombuffer(ref, "<u2", offset=DNG_HEADER)
+            pv, share = psnr(a, b), float((a != b).mean())
+            check(pv >= 90 and share <= 0.03, f"dual-ISO full {tag} {os.path.basename(p)}: {device} "
+                  f"vs cpu PSNR {pv:.1f} dB >= 90, {100 * share:.4f} % of pixels differ <= 3 %")
+            worst_psnr, worst_share = min(worst_psnr, pv), max(worst_share, share)
+        print(f"convert {tag} {w}x{h} 14-bit dual-ISO {' '.join([*DUAL_ISO_FULL, *extra])}, {n} frames, "
+              f"--device {device}: {secs:.3f} s, {n / secs:.1f} f/s; launches {launches}; {converted} "
+              f"frames converted at x4 levels, the rest at their own; first {n_ref} DNGs vs cpu "
+              f"({cpu_secs:.1f} s on the cpu): headers and unconverted frames equal, converted "
+              f"frames PSNR >= {worst_psnr:.1f} dB, at most {100 * worst_share:.4f} % of pixels "
+              f"differ [{card}]")
+    out = os.path.join(work, "dif_noalias_out")
+    reset_launches()
+    secs, _ = convert_cli(clips["5D3"], out, device, *DUAL_ISO_FULL, "--no-alias-map", "--no-idx")
+    launches = read_launches()
+    check(launches["alias_filter"] == 0, f"--no-alias-map: alias kernel launches {launches['alias_filter']} == 0")
+    files = dng_files(out)
+    check(len(files) == frames and all(dng_levels(read(p)) == (4 * ri_black, 4 * ri_white) for p in files),
+          "--no-alias-map: every frame converted at x4 levels")
+    print(f"convert 5D3 {size[0]}x{size[1]} {' '.join(DUAL_ISO_FULL)} --no-alias-map, {frames} frames: "
+          f"{secs:.3f} s; launches {launches} [{card}]")
+    return total
+
+
 def compressed_variants(work, device="cuda", frames=8, size=(1920, 1080)):
     """Phase 4: LZMA and LJ92 clips convert to the uncompressed clip's DNGs."""
     w, h = size
@@ -743,16 +903,17 @@ def compressed_variants(work, device="cuda", frames=8, size=(1920, 1080)):
 
 
 def breakdown(work, card, frames):
-    """``--breakdown N``: the per-layer times of the flags-on, pattern-noise
-    and preview steps, then each of the three programs as an N-frame 1080p
-    convert: twice, and once under torch.profiler."""
+    """``--breakdown N``: the per-layer times of the flags-on, pattern-noise,
+    preview and full dual-ISO steps, then each of the four programs as an
+    N-frame 1080p convert: twice, and once under torch.profiler."""
     import numpy as np
     import torch
 
     import types
 
-    from mlvfs_tpu_torch.ops import (chroma_smooth, dualiso, histogram, patternnoise,
-                                     patternnoise_fused, pixels, stripes, unpack)
+    from mlvfs_tpu_torch.ops import (alias, chroma_smooth, dualiso, dualiso_analysis_dev,
+                                     dualiso_full, histogram, patternnoise, patternnoise_fused,
+                                     pixels, stripes, unpack)
     from mlvfs_tpu_torch.utils import metrics
 
     w, h, b, black, white = 1920, 1080, 16, 2048, 15000
@@ -782,6 +943,32 @@ def breakdown(work, card, frames):
         hs, cs = dualiso.green_phase_histograms(di_imgs, white)
         return dualiso.fit_preview(hs, cs, black, white)
 
+    # the full dual-ISO path's stages on the same frames (RGGB: no row offset)
+    is_hdr = dualiso_full.hdr_check_batch(di_imgs, black, white)
+
+    def full_analysis():
+        res = dualiso_analysis_dev.analyze_batch(di_imgs, is_hdr, 0, h, black)
+        torch.stack([res[0].to(torch.int32), res[-1]]).cpu()  # the batch's one readback
+        return res
+
+    ok, *scalars, white20s = full_analysis()
+    check(bool(ok.all()), "breakdown: every dual-ISO frame converts")
+    recon_kw = dict(black20=black * 64, white20=int(white20s[0]), interp_method=1, use_fullres=True,
+                    use_alias=True, cs_method=0, exact_luts=False)
+    captured = {}
+
+    def capture(a_map, skip):
+        captured["args"] = (a_map, skip)
+        return alias_filter(a_map, skip)
+
+    alias_filter = dualiso_full.alias_ops.alias_filter
+    dualiso_full.alias_ops.alias_filter = capture
+    try:
+        dualiso_full.reconstruct_batch(di_imgs, *scalars, **recon_kw)
+    finally:
+        dualiso_full.alias_ops.alias_filter = alias_filter
+    alias_map, alias_skip = captured["args"]
+
     layers = [
         ("unpack kernel", lambda: unpack.unpack_batch(words, 14, h, w)),
         ("deflicker median", lambda: histogram.deflicker_median(imgs, (1 << 14) + 1)),
@@ -793,6 +980,11 @@ def breakdown(work, card, frames):
         ("dual-ISO preview, whole step", lambda: dualiso.hdr_preview_batch(di_imgs, fh, None)),
         ("  preview samples + readback + host fit (syncs)", preview_fit),
         ("  preview kernel #5", lambda: dualiso.apply_preview(di_imgs, *fit_args, black, white)),
+        ("dual-ISO full: hdr_check", lambda: dualiso_full.hdr_check_batch(di_imgs, black, white)),
+        ("dual-ISO full: analysis + its readback (syncs)", full_analysis),
+        ("dual-ISO full: reconstruction (mean23, alias map)",
+         lambda: dualiso_full.reconstruct_batch(di_imgs, *scalars, **recon_kw)),
+        ("  alias kernel #7 on the reconstruction's map", lambda: alias.alias_filter(alias_map, alias_skip)),
         ("bad-pixel fix", lambda: pixels.fix_pixel_list_batch(imgs, bad, black, 0, 0, False)),
         ("chroma kernel cs3x3", lambda: chroma_smooth.chroma_smooth_batch(imgs, 3, black)),
         ("stripe apply", lambda: stripes.apply_correction_batch(imgs, gains, black, white)),
@@ -813,6 +1005,7 @@ def breakdown(work, card, frames):
         ("pattern-noise", ["--fix-pattern-noise"], pattern_noise_frames(frames, w, h), {}),
         ("dual-ISO preview", ["--dual-iso-preview"], dual_iso_frames(frames, w, h),
          {"dual_iso": 3}),
+        ("dual-ISO full", DUAL_ISO_FULL, dual_iso_frames(frames, w, h), {"dual_iso": 3}),
     ]
     for label, flags, data, spec in programs:
         clip = os.path.join(work, "bd", "MBD.MLV")
@@ -907,6 +1100,7 @@ def main() -> int:
     chroma_rows = chroma_vs_plain(card)
     pn_rows, split_launches = pn_vs_plain(card)
     preview_row = preview_vs_plain(card)
+    alias_row = alias_vs_plain(card)
     try:
         reset_launches()
         default_launches = main_path(work, card=card)
@@ -916,17 +1110,18 @@ def main() -> int:
         flags_launches = flags_on_path(work, card)
         pn_launches = pattern_noise_path(work, card)
         di_launches = dual_iso_path(work, card)
+        full_launches = dual_iso_full_path(work, card)
         compressed_variants(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     check_no_reference("the port ran")
 
     rows = {"unpack": unpack_row, "chroma_smooth": chroma_rows[3],  # the path's --cs3x3
-            **pn_rows, "dualiso_preview": preview_row}
-    launches = {name: flags_launches[name] + pn_launches[name] + di_launches[name]
+            **pn_rows, "dualiso_preview": preview_row, "alias_filter": alias_row}
+    launches = {name: flags_launches[name] + pn_launches[name] + di_launches[name] + full_launches[name]
                 for name in rows}
     launches["unpack"] += default_launches
-    for name in ("pn_blur_interleaved", "dualiso_preview"):
+    for name in ("pn_blur_interleaved", "dualiso_preview", "alias_filter"):
         check(launches[name] > 0, f"the main paths launched {name}")
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": KERNELS[name][0],

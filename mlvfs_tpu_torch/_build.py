@@ -104,6 +104,23 @@ _SIGNATURES = {
             ],
         ),
     },
+    "alias": {
+        "mlvfs_alias_filter": (
+            ctypes.c_int,
+            [
+                ctypes.c_void_p,  # alias int32 (batch, height, width), rows contiguous
+                ctypes.c_void_p,  # skip bool (batch, height, width), rows contiguous
+                ctypes.c_void_p,  # out int32 (batch, height, width)
+                ctypes.c_longlong,  # batch
+                ctypes.c_longlong,  # height
+                ctypes.c_longlong,  # width
+                ctypes.c_longlong,  # alias frame stride (elements)
+                ctypes.c_longlong,  # skip frame stride (elements)
+                ctypes.c_longlong,  # out frame stride (elements)
+                ctypes.c_void_p,  # cudaStream_t
+            ],
+        ),
+    },
 }
 
 _lock = threading.Lock()

@@ -15,7 +15,9 @@ double-single ``evarith`` form is proven equal to them by its self-check).
 :func:`chroma_smooth_batch` is the entry point of the processing pipeline. On
 a CPU tensor it runs :func:`chroma_smooth_batch_plain`; on a CUDA tensor it
 launches the hand-written kernel ``csrc/chroma.cu`` (built by ``_build``) or
-raises. It never falls back from one to the other.
+raises. It never falls back from one to the other. :func:`chroma_smooth_20` is
+the 20-bit form the full dual-ISO reconstruction calls, on the same plain
+code.
 """
 
 from __future__ import annotations
@@ -72,22 +74,16 @@ def _div2_trunc(t: torch.Tensor) -> torch.Tensor:
     return torch.div(t, 2, rounding_mode="trunc")
 
 
-def chroma_smooth_batch_plain(imgs: torch.Tensor, method: int, black: int) -> torch.Tensor:
-    """Plain PyTorch twin of the kernel: (B, H, W) int16 (u16 bits) → a new
-    (B, H, W) int16.
-
-    Runs on any device; :func:`chroma_smooth_batch` uses it for CPU tensors,
-    and the GPU smoke test holds the kernel against it on the card. int32
-    arithmetic runs in int64, wrapped back to int32 where C would wrap.
-    """
-    _check(imgs, method)
-    h, w = imgs.shape[1:]
+def _smooth_plain(src: torch.Tensor, method: int, lut: torch.Tensor, inv: torch.Tensor,
+                  black: int) -> torch.Tensor:
+    """The smoothing of (B, H, W) int64 pixel values through the raw→EV table
+    ``lut`` (indexed by the pixel value, clamped to the table) and the EV→raw
+    table ``inv`` (indexed by ``ev + 10·EVR``) → a new (B, H, W) int64."""
+    h, w = src.shape[1:]
     ny, nx = cell_window(h, w)
     if ny == 0 or nx == 0:
-        return imgs.clone()
-    lut, inv = ev_tables(int(black), imgs.device)
-    src = imgs.to(torch.int64) & 0xFFFF
-    ev = lut[src]  # one whole-frame raw→EV lookup; INT_MIN at black
+        return src.clone()
+    ev = lut[src.clamp(0, lut.shape[0] - 1)]  # one whole-frame raw→EV lookup
 
     def ev_cells(dy, dx):
         # the cells' pixels at (4 + dy + 2cy, 4 + dx + 2cx)
@@ -113,7 +109,35 @@ def chroma_smooth_batch_plain(imgs: torch.Tensor, method: int, black: int) -> to
     b_sites = out[:, 5 : 5 + 2 * ny : 2, 5 : 5 + 2 * nx : 2]
     r_sites.copy_(torch.where(ok, to_raw(er), r_sites))
     b_sites.copy_(torch.where(ok, to_raw(eb), b_sites))
+    return out
+
+
+def chroma_smooth_batch_plain(imgs: torch.Tensor, method: int, black: int) -> torch.Tensor:
+    """Plain PyTorch twin of the kernel: (B, H, W) int16 (u16 bits) → a new
+    (B, H, W) int16.
+
+    Runs on any device; :func:`chroma_smooth_batch` uses it for CPU tensors,
+    and the GPU smoke test holds the kernel against it on the card. int32
+    arithmetic runs in int64, wrapped back to int32 where C would wrap.
+    """
+    _check(imgs, method)
+    lut, inv = ev_tables(int(black), imgs.device)
+    out = _smooth_plain(imgs.to(torch.int64) & 0xFFFF, method, lut, inv, black)
     return to_int16_bits(out & 0xFFFF)
+
+
+def chroma_smooth_20(frames: torch.Tensor, method: int, lut20: torch.Tensor,
+                     inv20: torch.Tensor) -> torch.Tensor:
+    """The 20-bit form inside the full dual-ISO reconstruction (hdr.c:1488-1500,
+    ``mlvfs_tpu/ops/dualiso_full.py:372-392``): (B, H, W) int32 frames at 20
+    bits, black 0, through ``lut20`` = raw2ev_lut20(black20, white20) and
+    ``inv20`` = ev2raw_lut20(black20, white20), both int64 on the frames'
+    device → a new (B, H, W) int32.
+
+    Plain torch on every device: the reference runs this stage in XLA, not
+    through the chroma kernel."""
+    _check(frames, method)
+    return _smooth_plain(frames.to(torch.int64), method, lut20, inv20, 0).to(torch.int32)
 
 
 @functools.lru_cache(maxsize=16)

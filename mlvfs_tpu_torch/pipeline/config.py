@@ -3,9 +3,8 @@
 Counterpart of ``mlvfs_tpu/pipeline/config.py``: the same frozen dataclass
 and field names (struct mlvfs, mlvfs.h:32-48, and the reference CLI option
 table, main.c:1853-1882), plus ``device``, the torch device the batches run
-on. Two JAX engine knobs have no meaning here and are not carried:
-``exact_luts`` (comes with the dual-ISO slice) and ``shard_devices``
-(comes with multi-GPU).
+on. One JAX engine knob is not carried yet: ``shard_devices`` (comes with
+multi-GPU).
 """
 
 from __future__ import annotations
@@ -35,6 +34,9 @@ class ProcessingConfig:
     use_sidecar_idx: bool = True
     focus_pixel_dir: str = None  # directory with .fpm maps (default: package data)
     compress: str = "none"  # DNG output compression: none | lj92
+    exact_luts: bool = False  # --dual-iso: the reference's 20-bit tables and the
+    #                           host float64 analysis instead of computed log2/exp2
+    #                           and the device analysis
     resume: bool = False  # skip frames whose DNG already exists (restartable)
     export_all: bool = False  # convert --all: also write the .wav/.log/
     #   _PREVIEW.gif sidecars next to the DNGs (main.c:1308-1320)

@@ -3,7 +3,7 @@
 Counterpart of ``mlvfs_tpu/pipeline/kernels.py``, the orchestration mirror of
 process_frame (main.c:908-1005). Ported so far, in the reference's order:
 
-  decode → deflicker median → pattern noise → dual-ISO preview →
+  decode → deflicker median → pattern noise → dual-ISO preview or full →
   [focus px, bad px (frames not converted)] → chroma smooth → stripes
 
 Per-clip calibration state is computed at the same pipeline position on the
@@ -13,8 +13,10 @@ first frame (main.c:980-996, stripes.c:97-99). With ``--dual-iso-preview``
 the reference decides per frame whether the frame is dual-ISO
 (main.c:951-973): converted frames get x4 levels, and the others take the
 normal-mode fixes and their own levels in every later step
-(``mlvfs_tpu/pipeline/kernels.py:79-204``). The full dual-ISO
-reconstruction and the whole-batch stripe calibration belong to slices that
+(``mlvfs_tpu/pipeline/kernels.py:79-204``); ``--dual-iso`` likewise, and it
+smooths chroma at 20 bits inside the reconstruction, so the 16-bit chroma
+step is skipped (frames it did not convert get no smoothing). Its amaze-edge
+interpolation and the whole-batch stripe calibration belong to slices that
 are not ported yet and are refused with NotImplementedError naming the flag,
 never passed over silently.
 """
@@ -28,22 +30,19 @@ import torch
 
 from .config import ProcessingConfig
 
-# config field → (CLI flag, the values of it not ported yet)
-_UNPORTED = (
-    ("dual_iso", "--dual-iso", (2,)),
-    ("stripes_batch_cal", "--stripes-batch-cal", (True,)),
-)
-
 
 def check_supported(cfg: ProcessingConfig) -> None:
     """Raise NotImplementedError if ``cfg`` asks for a processing step whose
     slice is not ported to mlvfs_tpu_torch yet."""
-    for field, flag, values in _UNPORTED:
-        if getattr(cfg, field) in values:
-            raise NotImplementedError(
-                f"{flag} ({field}={getattr(cfg, field)!r}) is not ported to "
-                "mlvfs_tpu_torch yet; use mlvfs_tpu for it"
-            )
+    if cfg.dual_iso == 2 and cfg.hdr_interpolation_method == 0:
+        raise NotImplementedError(
+            "--dual-iso without --mean23 (dual_iso=2 with the amaze-edge interpolation, "
+            "hdr_interpolation_method=0) is not ported to mlvfs_tpu_torch yet; add --mean23, "
+            "or use mlvfs_tpu for it")
+    if cfg.stripes_batch_cal:
+        raise NotImplementedError(
+            "--stripes-batch-cal (stripes_batch_cal=True) is not ported to mlvfs_tpu_torch yet; "
+            "use mlvfs_tpu for it")
 
 
 @dataclasses.dataclass
@@ -55,8 +54,9 @@ class ClipCalibration:
     bad_pixels_done: bool = False
     focus_pixel_list: np.ndarray = None
     focus_done: bool = False
-    dual_iso_rggb: bool = None  # Bayer order is per-clip (full dual-ISO slice)
-    dual_iso_white20: int = None  # reconstruction white level (full dual-ISO slice)
+    dual_iso_rggb: bool = None  # Bayer order is per clip: the first batch's detection
+    dual_iso_white20: int = None  # the reconstruction's white level (its tables and
+    #                               clamps), fixed by the clip's first converted batch
 
 
 def calibration_from_reference(cal) -> ClipCalibration:
@@ -105,8 +105,8 @@ def run_pipeline(imgs, fh, cfg: ProcessingConfig, cal: ClipCalibration, info: di
     With ``--deflicker`` the batch's medians stay on the device as
     ``info["deflicker_medians"]``; the caller turns them into
     ``exposure_bias`` (:func:`exposure_bias`) once they are read back, so
-    the batch costs no synchronisation here. With ``--dual-iso-preview``
-    and any frame converted, ``info["levels"]`` holds each frame's
+    the batch costs no synchronisation here. With ``--dual-iso-preview`` or
+    ``--dual-iso`` and any frame converted, ``info["levels"]`` holds each frame's
     (black, white) and ``info["black_level"]``/``["white_level"]`` the x4
     levels.
     """
@@ -132,6 +132,10 @@ def run_pipeline(imgs, fh, cfg: ProcessingConfig, cal: ClipCalibration, info: di
         from ..ops import dualiso as di_ops
 
         imgs, okv = di_ops.hdr_preview_batch(imgs, fh, cal)
+    elif cfg.dual_iso == 2:
+        from ..ops import dualiso_full as dif_ops
+
+        imgs, okv = dif_ops.cr2hdr20_batch(imgs, fh, cfg, cal)
     any_dual = okv is not None and bool(okv.any())
     mixed = any_dual and not bool(okv.all())
     if any_dual:
@@ -176,7 +180,8 @@ def run_pipeline(imgs, fh, cfg: ProcessingConfig, cal: ClipCalibration, info: di
                 )
         imgs = per_frame(imgs, fixed) if any_dual else fixed
 
-    if cfg.chroma_smooth:
+    if cfg.chroma_smooth and cfg.dual_iso != 2:
+        # (with --dual-iso the reconstruction smooths at 20 bits)
         from ..ops import chroma_smooth as cs_ops
 
         m = cfg.chroma_smooth

@@ -1,6 +1,8 @@
-"""The port's own host layer (format, emit, codecs, .fpm maps) gives the same
-bytes as the reference package's modules it was copied from."""
+"""The port's own host layer (format, emit, codecs, .fpm maps, the EV tables
+and the host dual-ISO analysis) gives the same bytes as the reference
+package's modules it was copied from."""
 
+import ast
 import os
 import random
 
@@ -19,6 +21,7 @@ from mlvfs_tpu_torch.emit import gif as port_gif
 from mlvfs_tpu_torch.emit import wav as port_wav
 from mlvfs_tpu_torch.format import reader as port_reader
 from mlvfs_tpu_torch.format import synth as port_synth
+from mlvfs_tpu_torch.ops import luts as port_luts
 from mlvfs_tpu_torch.ops import pixels as port_pixels
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -130,3 +133,26 @@ def test_bundled_fpm_maps_are_the_reference_maps():
         with open(os.path.join(ref_dir, n), "rb") as a, \
                 open(os.path.join(port_pixels._DATA_DIR, n), "rb") as b:
             assert a.read() == b.read(), n
+
+
+@pytest.mark.parametrize("black, white", [(2048 * 64, 15000 * 64), (2047 * 64, 10000 * 64)])
+def test_20bit_tables_are_the_reference_tables(black, white):
+    """The 20-bit raw↔EV tables and the fullres curve, byte for byte."""
+    from mlvfs_tpu.ops import luts as ref_luts
+
+    for name in ("raw2ev_lut20", "ev2raw_lut20"):
+        got, want = getattr(port_luts, name)(black, white), getattr(ref_luts, name)(black, white)
+        assert got.dtype == want.dtype and got.tobytes() == want.tobytes(), name
+    assert port_luts.fullres_curve(black).tobytes() == ref_luts.fullres_curve(black).tobytes()
+
+
+def test_host_dual_iso_analysis_is_a_copy():
+    """mlvfs_tpu_torch/ops/dualiso_analysis.py is the reference's module but
+    for its docstring: the same code, statement for statement."""
+
+    def body(path):
+        tree = ast.parse(open(path, encoding="utf-8").read())
+        return ast.dump(ast.Module(body=tree.body[1:], type_ignores=[]))
+
+    assert body(os.path.join(_REPO, "mlvfs_tpu_torch", "ops", "dualiso_analysis.py")) == \
+        body(os.path.join(_REPO, "mlvfs_tpu", "ops", "dualiso_analysis.py"))

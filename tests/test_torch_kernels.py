@@ -17,7 +17,7 @@ import torch
 
 from mlvfs_tpu_torch.format import synth
 from mlvfs_tpu_torch import _build
-from mlvfs_tpu_torch.ops import (chroma_smooth, dualiso, patternnoise, patternnoise_fused,
+from mlvfs_tpu_torch.ops import (alias, chroma_smooth, dualiso, patternnoise, patternnoise_fused,
                                  pixels, unpack)
 from mlvfs_tpu_torch.pipeline.config import ProcessingConfig
 from mlvfs_tpu_torch.pipeline.convert import convert_clip
@@ -265,6 +265,73 @@ def test_pattern_noise_and_preview_convert_on_card_match_cpu(flags, tmp_path):
         tree["CAL"] = cal.read_bytes() if cal.exists() else None
         trees.append(tree)
     assert len(trees[0]) == 6 and trees[0] == trees[1]
+
+
+@pytest.mark.cuda
+def test_alias_kernel_matches_plain():
+    """Kernel #7 is bit-equal to its twin at 1080p and at the small, odd and
+    multi-tile sizes (no inner pixels below 13 px, no cells at 4 px), skip
+    densities 0, 1/2 and 1, and on a sub-frame one row down (GBRG)."""
+    _need_card()
+    rng = np.random.default_rng(7)
+    for b, h, w in [(4, 1080, 1920), (3, 5, 9), (3, 12, 16), (1, 13, 13), (2, 64, 37), (2, 300, 41),
+                    (1, 4, 4)]:
+        for density in (0.0, 0.5, 1.0):
+            a = torch.from_numpy(rng.integers(0, 65531, (b, h, w), dtype=np.int32)).cuda()
+            skip = torch.from_numpy(rng.random((b, h, w)) < density).cuda()
+            before = alias.KERNEL_LAUNCHES
+            got = alias.alias_filter(a, skip)
+            assert alias.KERNEL_LAUNCHES == before + 1
+            want = alias.alias_filter_plain(a, skip)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (b, h, w, density)
+    a = torch.from_numpy(rng.integers(0, 65531, (2, 101, 64), dtype=np.int32)).cuda()
+    skip = torch.from_numpy(rng.random((2, 101, 64)) < 0.3).cuda()
+    assert torch.equal(alias.alias_filter(a[:, 1:], skip[:, 1:]),
+                       alias.alias_filter_plain(a[:, 1:], skip[:, 1:]))
+    with pytest.raises(TypeError):
+        alias.alias_filter(a.float(), skip)
+    with pytest.raises(ValueError):
+        alias.alias_filter(a[:, :, 1:], skip[:, :, 1:])
+
+
+@pytest.mark.cuda
+def test_dual_iso_convert_on_card_matches_cpu(tmp_path):
+    """--dual-iso --mean23 with --bad-pix --cs2x2 --stripes on a clip whose
+    third frame is single-ISO: kernel #7 launches once per batch that holds
+    a converted frame; the frame that is not converted and every DNG header
+    are byte-identical to the CPU's, converted frames within PSNR 90 dB and
+    3 % of pixels (the float32 stages round differently on the card)."""
+    _need_card()
+    import dataclasses
+
+    spec = synth.SynthSpec(width=640, height=192, frames=5, dual_iso=3)
+    rng = np.random.default_rng(8)
+    data = np.stack([synth.make_frame_data(dataclasses.replace(spec, dual_iso=0) if i == 2 else spec,
+                                           rng) for i in range(spec.frames)])
+    trees = []
+    for device in ("cuda", "cpu"):
+        src = tmp_path / device / "C.MLV"
+        src.parent.mkdir()
+        synth.write_mlv(str(src), spec, frame_data=data)
+        before = alias.KERNEL_LAUNCHES
+        convert_clip(str(src), str(tmp_path / device / "out"), ProcessingConfig(
+            device=device, batch_size=2, dual_iso=2, hdr_interpolation_method=1, fix_bad_pixels=1,
+            chroma_smooth=2, fix_stripes=True))
+        assert alias.KERNEL_LAUNCHES - before == (3 if device == "cuda" else 0)
+        out = tmp_path / device / "out"
+        trees.append({n: (out / n).read_bytes() for n in sorted(os.listdir(out))})
+    assert list(trees[0]) == list(trees[1]) and len(trees[0]) == 5
+    for i, name in enumerate(trees[0]):
+        card, cpu = trees[0][name], trees[1][name]
+        assert card[:65536] == cpu[:65536], name
+        a = np.frombuffer(card, "<u2", offset=65536).astype(np.float64)
+        b = np.frombuffer(cpu, "<u2", offset=65536).astype(np.float64)
+        if i == 2:
+            assert card == cpu
+        mse = np.mean((a - b) ** 2)
+        assert mse == 0 or 10 * np.log10(65535.0 ** 2 / mse) >= 90, name
+        assert (a != b).mean() <= 0.03, name
 
 
 def test_library_path_follows_source(tmp_path, monkeypatch):

@@ -1,8 +1,8 @@
 """The port runs without JAX and without the reference package, refuses a CUDA
 device it does not have, converts with the processing flags its slices have
 ported (held against mlvfs_tpu), and refuses the flags whose slices are not
-ported yet (the full dual-ISO reconstruction, the whole-batch stripe
-calibration, multi-GPU batches)."""
+ported yet (the full dual-ISO reconstruction with the amaze-edge
+interpolation, the whole-batch stripe calibration, multi-GPU batches)."""
 
 import ast
 import os
@@ -29,10 +29,11 @@ def _tree(outdir):
 
 def test_port_imports_no_jax(tmp_path):
     """Importing the port and converting a clip with the ported flags on the
-    CPU (pattern noise and the dual-ISO preview among them) loads neither jax
-    nor any module of mlvfs_tpu, and opens no file under mlvfs_tpu/: the EOS M
-    clip's bundled focus-pixel map and the LJ92 codec (--compress-dng) come
-    from the port's own copies."""
+    CPU (pattern noise and the dual-ISO preview among them), and a dual-ISO
+    clip with ``--dual-iso --mean23``, loads neither jax nor any module of
+    mlvfs_tpu, and opens no file under mlvfs_tpu/: the EOS M clip's bundled
+    focus-pixel map and the LJ92 codec (--compress-dng) come from the port's
+    own copies."""
     code = (
         "import builtins, ctypes, sys\n"
         "opened = []\n"
@@ -48,6 +49,7 @@ def test_port_imports_no_jax(tmp_path):
         "import mlvfs_tpu_torch.ops.unpack, mlvfs_tpu_torch.ops.pixels\n"
         "import mlvfs_tpu_torch.ops.chroma_smooth, mlvfs_tpu_torch.ops.stripes\n"
         "import mlvfs_tpu_torch.ops.patternnoise_fused, mlvfs_tpu_torch.ops.dualiso\n"
+        "import mlvfs_tpu_torch.ops.dualiso_full, mlvfs_tpu_torch.ops.alias\n"
         "from mlvfs_tpu_torch.format import synth\n"
         f"synth.write_mlv({str(tmp_path / 'C.MLV')!r}, width=1808, height=727, frames=2,\n"
         "                camera_model=0x80000331, camera_name='Canon EOS M', audio=True)\n"
@@ -56,6 +58,13 @@ def test_port_imports_no_jax(tmp_path):
         "'--deflicker', '3000', '--bad-pix', '--fix-pattern-noise', '--dual-iso-preview', "
         "'--compress-dng', '--all'])\n"
         "assert rc == 0, rc\n"
+        f"synth.write_mlv({str(tmp_path / 'D.MLV')!r}, width=256, height=192, frames=2, dual_iso=3)\n"
+        f"rc = mlvfs_tpu_torch.cli.main(['convert', {str(tmp_path / 'D.MLV')!r}, '-o', "
+        f"{str(tmp_path / 'out_di')!r}, '--device', 'cpu', '--dual-iso', '--mean23', '--cs2x2', "
+        "'--bad-pix'])\n"
+        "assert rc == 0, rc\n"
+        "from mlvfs_tpu_torch.ops import alias, dualiso_full\n"
+        "assert alias.KERNEL_LAUNCHES == 0 and dualiso_full.ALIAS_MAP_MAX == 15000\n"
         "print(sorted(m for m in sys.modules if m.startswith('jax')),\n"
         "      sorted(m for m in sys.modules if m == 'mlvfs_tpu' or m.startswith('mlvfs_tpu.')))\n"
         "print('\\n'.join(opened))\n"
@@ -73,6 +82,7 @@ def test_port_imports_no_jax(tmp_path):
     assert os.path.join(port, "build", "liblj92.so") in opened
     assert not [p for p in opened if p.startswith(ref)]
     assert len([n for n in os.listdir(tmp_path / "out") if n.endswith(".dng")]) == 2
+    assert len([n for n in os.listdir(tmp_path / "out_di") if n.endswith(".dng")]) == 2
 
 
 def _imports_reference(source: str) -> list:
@@ -142,7 +152,7 @@ def test_ported_flag_matches_jax(field, value, tmp_path):
     assert _tree(tmp_path / "port") == _tree(tmp_path / "ref")
 
 
-@pytest.mark.parametrize("flags", [["--dual-iso", "--mean23"], ["--stripes-batch-cal"],
+@pytest.mark.parametrize("flags", [["--dual-iso"], ["--stripes-batch-cal"],
                                    ["--devices", "4"]])
 def test_cli_unported_flag_fails_clearly(flags, tmp_path, capsys):
     src = str(tmp_path / "C.MLV")
@@ -155,7 +165,8 @@ def test_cli_unported_flag_fails_clearly(flags, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags", [["--cs3x3"], ["--deflicker=3000"], ["--bad-pix"],
-                                   ["--fix-pattern-noise"], ["--dual-iso-preview"]])
+                                   ["--fix-pattern-noise"], ["--dual-iso-preview"],
+                                   ["--dual-iso", "--mean23", "--cs3x3"]])
 def test_cli_ported_flag_matches_jax(flags, tmp_path):
     from mlvfs_tpu import cli as ref_cli
 
