@@ -32,6 +32,20 @@ Phases (any failed check raises, and the script exits non-zero):
      1080p and 1872x1060 with B=16, heights 5, 12, 13, 64 and 300 at odd and
      even widths, skip densities 0, 1/2 and 1; times at 1080p/B=16 and the
      share of the bound counted from the pixels those inputs select;
+  2f. the edge scorer and pick kernel (#6) against its plain twin, bit-equal:
+     1080p and 1872x1060 with B=16, heights 300, 64, 11 and 5 at odd and
+     even widths, restricted densities 0, 1/2 and 1; times at 1080p/B=16
+     and the share of the bound counted from the pixels those inputs score;
+  2g. the AMaZE raster-pass kernels (#10) against their plain twins on the
+     1080p and EOS M padded planes (B=16) and on short, two-tile and
+     partial-tile planes (dilate bit-equal, refine and chroma within 0.01,
+     their max error printed), then the AMaZE demosaic (#8's stencil
+     stages with #10 between them) against its plain twin at 1080p and
+     1872x1060 with B=16 and at three small sizes (rtol 1e-5, atol 0.01 on
+     the 0..65535 scale, the max error printed); #8's and #10's device time
+     in one demosaic at 1080p/B=16 (torch.profiler), the whole call and the
+     twin by CUDA events, and the five passes of one demosaic against their
+     twins;
   3. the default convert path, ``python -m mlvfs_tpu_torch convert CLIP -o
      OUT --device cuda`` through ``cli.main``: a 1920x1080 14-bit 5D Mark III
      clip (64 frames) whose DNG payloads must equal the synthesized frames,
@@ -59,9 +73,14 @@ Phases (any failed check raises, and the script exits non-zero):
      frames are single-ISO, with ``--bad-pix --cs2x2 --stripes``. Kernel #7
      must run once per batch (each holds a converted frame) and not at all
      under ``--no-alias-map``; converted frames carry x4 levels, the others
-     their own. The first DNGs are held against the port's CPU conversion
+     their own. The first 2 DNGs are held against the port's CPU conversion
      of them: headers and frames not converted byte-identical, converted
      frames within PSNR 90 dB and 3 % of pixels;
+  3f. ``convert CLIP --dual-iso`` (amaze-edge, the default interpolation)
+     on the same two clips and flags as 3e: per batch (each holds a
+     converted frame) kernels #6, #8 and #7 launch once and #10 five times;
+     levels, and the first 2 DNGs against the port's CPU conversion, as in
+     3e;
   4. LZMA and LJ92 variants of a short 1080p clip through the card, whose
      DNGs must be byte-identical to the uncompressed clip's.
 
@@ -74,10 +93,11 @@ reaches it only from tests and tools): its ``launches`` are 0, and its
 goes (PERF.md section 5): each layer's device time per 1080p batch of 16 and
 its host enqueue time (the pattern-noise, preview and full dual-ISO steps
 too, the preview's host fit and the full path's analysis with their
-readbacks included), the once-per-clip calibration, and for each of the
-flags-on, ``--fix-pattern-noise``, ``--dual-iso-preview`` and ``--dual-iso
---mean23`` programs two N-frame converts and one under torch.profiler
-(device busy share, device time by kernel). Without a CUDA card it exits non-zero and prints no
+readbacks included; the amaze-edge reconstruction with #8 + #10 and #6 on
+its own inputs), the once-per-clip calibration, and for each of the
+flags-on, ``--fix-pattern-noise``, ``--dual-iso-preview``, ``--dual-iso
+--mean23`` and ``--dual-iso`` programs two N-frame converts and one under
+torch.profiler (device busy share, device time by kernel). Without a CUDA card it exits non-zero and prints no
 result. The line before the last is a JSON summary of the kernels; the last
 line of stdout is ``{"ok": true, "device": {"platform": "gpu", "kind": ...,
 "count": ...}}``. Scratch files go to build/smoke/ under the repository and
@@ -105,6 +125,10 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "dualiso_preview": ("mlvfs_tpu_torch/csrc/dualiso_preview.cu",
                         "mlvfs_tpu/ops/dualiso_preview_pallas.py:107"),
     "alias_filter": ("mlvfs_tpu_torch/csrc/alias.cu", "mlvfs_tpu/ops/alias_pallas.py:110"),
+    "amaze_edge_pick": ("mlvfs_tpu_torch/csrc/amaze_edge.cu", "mlvfs_tpu/ops/amaze_edge_pallas.py:136"),
+    "amaze_demosaic": ("mlvfs_tpu_torch/csrc/amaze.cu", "mlvfs_tpu/ops/amaze_pallas.py:688"),
+    "amaze_raster_passes": ("mlvfs_tpu_torch/csrc/amaze_scans.cu",
+                            "mlvfs_tpu/ops/amaze_scans_pallas.py:356"),
 }
 DNG_HEADER = 65536
 # the card's published peaks (NVIDIA H100 SXM data sheet, at the 700 W limit):
@@ -451,6 +475,269 @@ def alias_vs_plain(card: str):
     return max_err, kernel_ms, plain_ms, bound_ms, bound_by
 
 
+def edge_ops(n_scored: int, n_pixels: int) -> int:
+    """Integer operations the edge pick needs, counted in the reference's
+    form: per scored pixel (in the window, not restricted) 12 directions of
+    three tap differences and their absolute values and sums (8), the 11-tap
+    box sum by doubled partial sums (5), the direction's penalty (1) and the
+    running least (2); per pixel the window and restricted tests (3), the
+    three candidates (a doubled tap, a sum, a division: 3 each) and their
+    weighted mean (4), and the neighbours' clamps (2)."""
+    return n_scored * 12 * 16 + n_pixels * 18
+
+
+def edge_inputs(gen, b, h, w, density):
+    """EV planes of the gray image and the two tap classes (flat areas where
+    directions tie), per-row signs of the four dark-row phases, a restricted
+    map of the given density."""
+    import torch
+
+    from mlvfs_tpu_torch.ops.luts import EV_RESOLUTION as evr
+
+    ev = [torch.randint(-2 * evr, 14 * evr, (b, h, w), dtype=torch.int32, device="cuda", generator=gen)
+          for _ in range(3)]
+    ev[0][:, h // 3 :, : w // 2] //= 64
+    ys = torch.arange(h, device="cuda")[None, :] - torch.arange(b, device="cuda")[:, None]
+    s = torch.where(((ys % 4) >= 2) == (((ys + 1) % 4) >= 2), -1, 1).to(torch.int32)
+    restricted = torch.rand((b, h, w), device="cuda", generator=gen) < density
+    return (*ev, s, restricted)
+
+
+def edge_vs_plain(card: str):
+    """Phase 2f. Returns (max_abs_err, kernel_ms, plain_ms, bound_ms, bound_by)
+    at 1080p/B=16, restricted density 1/2."""
+    import torch
+
+    from mlvfs_tpu_torch.ops import amaze_edge
+
+    gen = torch.Generator(device="cuda").manual_seed(2029)
+    max_err = 0
+    cases = [(16, 1080, 1920), (16, 1060, 1872), (3, 300, 41), (3, 64, 40), (3, 11, 12), (2, 5, 7)]
+    for b, h, w in cases:
+        for density in (0.0, 0.5, 1.0):
+            args = edge_inputs(gen, b, h, w, density)
+            got = amaze_edge.edge_pick(*args)
+            want = amaze_edge.edge_pick_plain(*args)
+            torch.cuda.synchronize()
+            err = int((got.long() - want.long()).abs().max())
+            max_err = max(max_err, err)
+            check(torch.equal(got, want),
+                  f"edge kernel #6 == plain at {h}x{w} B={b} restricted {density} (max err {err})")
+    print(f"edge kernel #6 vs plain: bit-equal in all cases, max_abs_err {max_err}")
+    b, h, w = 16, 1080, 1920
+    args = edge_inputs(gen, b, h, w, 0.5)
+    plain_a = _median_ms(lambda: amaze_edge.edge_pick_plain(*args), reps=3, warmup=1)
+    kernel_a = _median_ms(lambda: amaze_edge.edge_pick(*args))
+    kernel_b = _median_ms(lambda: amaze_edge.edge_pick(*args))
+    plain_b = _median_ms(lambda: amaze_edge.edge_pick_plain(*args), reps=3, warmup=1)
+    kernel_ms, plain_ms = min(kernel_a, kernel_b), min(plain_a, plain_b)
+    moved = b * h * w * (3 * 4 + 1 + 4) + b * h * 4
+    ys = torch.arange(h, device="cuda")[:, None]
+    xs = torch.arange(w, device="cuda")[None, :]
+    window = (ys >= 5) & (ys < h - 5) & (xs >= 5) & (xs < w - 5)
+    n_scored = int((window & ~args[4]).sum())
+    bound_ms, bound_by = bound(moved, edge_ops(n_scored, b * h * w))
+    print(f"edge pick {w}x{h} B={b}, restricted density 0.5: kernel {kernel_ms:.4f} ms "
+          f"({moved / kernel_ms / 1e6:.1f} GB/s, runs {kernel_a:.4f}/{kernel_b:.4f}), plain "
+          f"{plain_ms:.4f} ms (runs {plain_a:.4f}/{plain_b:.4f}); bound {bound_ms:.4f} ms ({bound_by}; "
+          f"bytes alone {moved / HBM_BYTES_PER_S * 1e3:.4f} ms, {n_scored} pixels scored), kernel at "
+          f"{100 * bound_ms / kernel_ms:.1f} % of it [{card}]")
+    return max_err, kernel_ms, plain_ms, bound_ms, bound_by
+
+
+def amaze_mosaics(gen, b, h, w):
+    """(B, H, W) float32 RGGB mosaics on the 20-bit scale the reconstruction
+    hands AMaZE: a smooth scene with diagonal stripes (Nyquist areas), noise,
+    and a clipped block."""
+    import torch
+
+    y = torch.arange(h, device="cuda", dtype=torch.float64)[:, None]
+    x = torch.arange(w, device="cuda", dtype=torch.float64)[None, :]
+    gains = torch.tensor([[0.85, 1.0], [1.0, 0.55]], device="cuda", dtype=torch.float64)
+    gain = gains[(y.long() % 2), (x.long() % 2)]
+    frames = []
+    for i in range(b):
+        base = (9000 + 6000 * torch.sin(x / (7.0 + i)) * torch.cos(y / 11.0)
+                + 20000 * (((x + 2 * y) % 97) < 18))
+        img = base * gain + 60 * torch.randn((h, w), device="cuda", generator=gen, dtype=torch.float64)
+        img[h // 3 : h // 2, w // 4 : w // 2] = 900000
+        frames.append(img.clamp(0, (1 << 20) - 1))
+    return torch.stack(frames).float()
+
+
+# float32 operations AMaZE's stencil stages need per padded pixel, counted
+# from csrc/amaze.cu (a fused multiply-add as 2, per-cell work halved over
+# the cell's two pixels): gradients 28, cardinal interpolation 107,
+# selection and bounding 78, hvwt and the Nyquist test 89, populate and
+# the Nyquist refinement's fixed part 3, diagonal interpolation 64, rbint 3,
+# G correction and the chroma planes 49, output 25; and per Nyquist cell
+# the area sums (49 taps of 28 operations and their totals, 1,420), the
+# curvature (13) and the refinement (45)
+AMAZE_OPS_PER_PADDED_PX = 446
+AMAZE_OPS_PER_NYQ_CELL = 1478
+# float32 / int32 operations a pixel of the five raster passes of one
+# demosaic, per pass over its (B, hp, wp) plane: refine 5 (twice), chroma 20
+# (each of the two planes: 79 a cell on a quarter of the pixels), dilate 8
+RASTER_FP32_OPS_PER_PX = 2 * 5 + 2 * 20
+RASTER_INT32_OPS_PER_PX = 8
+
+
+def _profiled_ms(fn, match, reps=3):
+    """Median over ``reps`` calls of the device time of the kernels whose
+    names contain one of ``match`` (torch.profiler), in ms per call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    per_call = []
+    for _ in range(reps):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        per_call.append(sum(e.time_range.elapsed_us() for e in prof.events()
+                            if e.device_type == torch.autograd.DeviceType.CUDA
+                            and any(m in e.name for m in match)) / 1e3)
+    per_call.sort()
+    return per_call[len(per_call) // 2]
+
+
+STAGE_KERNELS = ("k_gradients", "k_cardinal", "k_select", "k_hvwt", "k_area", "k_populate",
+                 "k_curvature", "k_nyq_refine", "k_diag", "k_rbint", "k_gcorr", "k_output")
+PASS_KERNELS = ("refine_kernel", "dilate_kernel", "chroma_kernel")
+
+
+def amaze_vs_plain(card: str):
+    """Phase 2g. Returns ({"amaze_demosaic": row, "amaze_raster_passes": row},
+    launches of the raster passes in the phase), rows (max_abs_err,
+    kernel_ms, plain_ms, bound_ms, bound_by) at 1080p/B=16."""
+    import torch
+
+    from mlvfs_tpu_torch.ops import amaze_core, amaze_scans
+
+    gen = torch.Generator(device="cuda").manual_seed(2030)
+    pass_err = 0.0
+    for b, hp, wp in [(16, 1112, 1952), (16, 1092, 1904), (2, 224, 192), (1, 40, 34), (1, 290, 50)]:
+        wt = torch.rand((b, hp, wp), device="cuda", generator=gen)
+        nyq = (torch.rand((b, hp, wp), device="cuda", generator=gen) > 0.6).to(torch.int32)
+        D = 0.1 * torch.randn((b, hp, wp), device="cuda", generator=gen)
+        got = [amaze_scans.dilate(nyq), amaze_scans.refine(wt), amaze_scans.chroma(D, 0),
+               amaze_scans.chroma(D, 1)]
+        want = [amaze_core.dilate_plain(nyq), amaze_core.refine_plain(wt), amaze_core.chroma_plain(D, 0),
+                amaze_core.chroma_plain(D, 1)]
+        torch.cuda.synchronize()
+        check(torch.equal(got[0], want[0]), f"raster pass #10 dilate == plain at {hp}x{wp} B={b}")
+        for name, g, v in zip(("refine", "chroma 0", "chroma 1"), got[1:], want[1:]):
+            err = float((g.double() - v.double()).abs().max())
+            pass_err = max(pass_err, err)
+            check(err <= 0.01, f"raster pass #10 {name} within 0.01 of plain at {hp}x{wp} B={b} "
+                               f"(max err {err})")
+    print(f"raster pass kernels #10 vs plain: dilate bit-equal, refine and chroma max_abs_err "
+          f"{pass_err} ({'bit-equal' if pass_err == 0 else 'not bit-equal'})")
+
+    demosaic_err = 0.0
+    for b, h, w in [(16, 1080, 1920), (16, 1060, 1872), (1, 160, 224), (2, 17, 18), (1, 320, 352)]:
+        raw = amaze_mosaics(gen, b, h, w)
+        got = amaze_core.amaze_demosaic(raw)
+        want = amaze_core.amaze_demosaic_plain(raw)
+        torch.cuda.synchronize()
+        for name, g, v in zip("RGB", got, want):
+            check(bool(torch.isfinite(g).all()) and g.shape == (b, h, w),
+                  f"AMaZE #8 {name}: finite {b}x{h}x{w}")
+            err = float((g.double() - v.double()).abs().max())
+            demosaic_err = max(demosaic_err, err)
+            check(bool(torch.allclose(g, v, rtol=1e-5, atol=0.01)),
+                  f"AMaZE #8 {name} within rtol 1e-5 / atol 0.01 of plain at {h}x{w} B={b} (max err {err})")
+        del got, want
+    print(f"AMaZE kernel #8 (with #10) vs plain: max_abs_err {demosaic_err} on the 0..65535 scale "
+          f"({'bit-equal' if demosaic_err == 0 else 'not bit-equal'})")
+
+    b, h, w = 16, 1080, 1920
+    hp, wp = h + 2 * amaze_core.PAD, w + 2 * amaze_core.PAD
+    raw = amaze_mosaics(gen, b, h, w)
+    captured = {}
+    dilate = amaze_scans.dilate
+
+    def capture(nyq0, out=None):
+        captured["nyq"] = dilate(nyq0, out=out)
+        return captured["nyq"]
+
+    amaze_scans.dilate = capture
+    try:
+        amaze_core.amaze_demosaic(raw)
+    finally:
+        amaze_scans.dilate = dilate
+    rbmask = ((torch.arange(hp, device="cuda")[:, None] + torch.arange(wp, device="cuda")[None, :]) % 2) == 0
+    n_nyq = int(((captured["nyq"] > 0) & rbmask).sum())
+
+    def run():
+        return amaze_core.amaze_demosaic(raw)
+
+    # #8's plain twin alone: the twin's stencil stages with #10's kernels as
+    # the raster passes between them
+    pass_kernels = {"refine": amaze_scans.refine, "dilate": amaze_scans.dilate,
+                    "chroma": amaze_scans.chroma}
+
+    def plain_stages():
+        return amaze_core._stencil_stages_plain(amaze_core.pad_mosaic(raw), pass_kernels)
+
+    stage_ms = _profiled_ms(run, STAGE_KERNELS)
+    passes_ms = _profiled_ms(run, PASS_KERNELS)
+    per_pass = {name: _profiled_ms(run, (name,)) for name in PASS_KERNELS}
+    whole_a = _median_ms(run, reps=5)
+    plain_a = _median_ms(plain_stages, reps=3, warmup=1)
+    twin_a = _median_ms(lambda: amaze_core.amaze_demosaic_plain(raw), reps=3, warmup=1)
+    whole_b = _median_ms(run, reps=5)
+    plain_b = _median_ms(plain_stages, reps=3, warmup=1)
+    twin_b = _median_ms(lambda: amaze_core.amaze_demosaic_plain(raw), reps=3, warmup=1)
+    whole_ms, plain_ms, twin_ms = min(whole_a, whole_b), min(plain_a, plain_b), min(twin_a, twin_b)
+    n_padded = b * hp * wp
+    moved = b * h * w * 4 * 4  # one plane in, three out
+    t_ops = (n_padded * AMAZE_OPS_PER_PADDED_PX + n_nyq * AMAZE_OPS_PER_NYQ_CELL) / FP32_OPS_PER_S
+    t_bytes = moved / HBM_BYTES_PER_S
+    amaze_bound = (max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes")
+    print(f"AMaZE demosaic {w}x{h} B={b}: stencil stages #8 {stage_ms:.4f} ms, raster passes #10 "
+          f"{passes_ms:.4f} ms (device time of their kernels, torch.profiler), the whole call "
+          f"{whole_ms:.4f} ms (runs {whole_a:.4f}/{whole_b:.4f}); plain twin of the stages (with the "
+          f"#10 kernels) {plain_ms:.4f} ms (runs {plain_a:.4f}/{plain_b:.4f}), the whole plain twin "
+          f"{twin_ms:.4f} ms (runs {twin_a:.4f}/{twin_b:.4f}); #8 bound {amaze_bound[0]:.4f} ms ({amaze_bound[1]}; {n_nyq} "
+          f"Nyquist cells; bytes alone {t_bytes * 1e3:.4f} ms), #8 at "
+          f"{100 * amaze_bound[0] / stage_ms:.1f} % of it [{card}]")
+    print("raster passes #10 inside that demosaic (torch.profiler): "
+          + ", ".join(f"{name} {ms:.4f} ms" for name, ms in per_pass.items())
+          + f" (refine and chroma launch twice, dilate once) [{card}]")
+
+    # the five passes of one demosaic on planes of its shape, each against its twin
+    wt = torch.rand((b, hp, wp), device="cuda", generator=gen)
+    nyq = (torch.rand((b, hp, wp), device="cuda", generator=gen) > 0.6).to(torch.int32)
+    D = 0.1 * torch.randn((b, hp, wp), device="cuda", generator=gen)
+
+    def passes(refine, dilate_, chroma):
+        return (dilate_(nyq), refine(wt), refine(wt), chroma(D, 1), chroma(D, 0))
+
+    def kernel_passes():
+        return passes(amaze_scans.refine, amaze_scans.dilate, amaze_scans.chroma)
+
+    def plain_passes():
+        return passes(amaze_core.refine_plain, amaze_core.dilate_plain, amaze_core.chroma_plain)
+
+    plain_a = _median_ms(plain_passes, reps=3, warmup=1)
+    kernel_a = _median_ms(kernel_passes)
+    kernel_b = _median_ms(kernel_passes)
+    plain_b = _median_ms(plain_passes, reps=3, warmup=1)
+    kernel_ms, pplain_ms = min(kernel_a, kernel_b), min(plain_a, plain_b)
+    p_bytes = 5 * 2 * n_padded * 4 / HBM_BYTES_PER_S
+    p_ops = (n_padded * RASTER_FP32_OPS_PER_PX / FP32_OPS_PER_S
+             + n_padded * RASTER_INT32_OPS_PER_PX / INT32_OPS_PER_S)
+    pass_bound = (max(p_bytes, p_ops) * 1e3, "operations" if p_ops > p_bytes else "bytes")
+    print(f"raster passes #10, the five of one demosaic at {wp}x{hp} B={b}: kernels {kernel_ms:.4f} ms "
+          f"(runs {kernel_a:.4f}/{kernel_b:.4f}), plain {pplain_ms:.4f} ms (runs {plain_a:.4f}/"
+          f"{plain_b:.4f}); bound {pass_bound[0]:.4f} ms ({pass_bound[1]}), kernels at "
+          f"{100 * pass_bound[0] / kernel_ms:.1f} % of it [{card}]")
+    return {"amaze_demosaic": (demosaic_err, stage_ms, plain_ms, *amaze_bound),
+            "amaze_raster_passes": (pass_err, kernel_ms, pplain_ms, *pass_bound)}
+
+
 def synth_clip(path, frames, width, height, camera_model, camera_name, frame_data=None, **kw):
     import numpy as np
 
@@ -476,12 +763,13 @@ def read(path) -> bytes:
 
 
 def _counters():
-    from mlvfs_tpu_torch.ops import (alias, chroma_smooth, dualiso, patternnoise,
-                                     patternnoise_fused, unpack)
+    from mlvfs_tpu_torch.ops import (alias, amaze_core, amaze_edge, amaze_scans, chroma_smooth,
+                                     dualiso, patternnoise, patternnoise_fused, unpack)
 
     return {"unpack": unpack, "chroma_smooth": chroma_smooth,
             "pn_blur_interleaved": patternnoise_fused, "pn_blur_split": patternnoise,
-            "dualiso_preview": dualiso, "alias_filter": alias}
+            "dualiso_preview": dualiso, "alias_filter": alias, "amaze_edge_pick": amaze_edge,
+            "amaze_demosaic": amaze_core, "amaze_raster_passes": amaze_scans}
 
 
 def reset_launches():
@@ -794,19 +1082,28 @@ def psnr(a, b) -> float:
 
 
 DUAL_ISO_FULL = ["--dual-iso", "--mean23"]
+DUAL_ISO_AMAZE = ["--dual-iso"]  # amaze-edge, the default interpolation
 
 
 def dual_iso_full_path(work, card, device="cuda", frames=32, size=(1920, 1080),
-                       eosm_frames=20, eosm_size=(1872, 1060), batch_size=16, n_ref=4):
-    """Phase 3e: ``--dual-iso --mean23`` on a 1080p dual-ISO 5D3 clip, and on
-    an EOS M clip with single-ISO odd frames plus ``--bad-pix --cs2x2
-    --stripes``; then the 5D3 clip under ``--no-alias-map``. Returns the
-    launches per kernel of the first two converts."""
+                       eosm_frames=20, eosm_size=(1872, 1060), batch_size=16, n_ref=4,
+                       interp="mean23"):
+    """Phase 3e (``interp="mean23"``): ``--dual-iso --mean23`` on a 1080p
+    dual-ISO 5D3 clip, and on an EOS M clip with single-ISO odd frames plus
+    ``--bad-pix --cs2x2 --stripes``; then the 5D3 clip under
+    ``--no-alias-map``. Phase 3f (``interp="amaze"``): the same two clips
+    with ``--dual-iso`` (amaze-edge), where per batch #6 and #8 launch once
+    and #10 five times. Returns the launches per kernel of the first two
+    converts."""
     import numpy as np
 
     from mlvfs_tpu_torch.pipeline.config import ProcessingConfig
     from mlvfs_tpu_torch.pipeline.convert import convert_clip
 
+    program = DUAL_ISO_FULL if interp == "mean23" else DUAL_ISO_AMAZE
+    method = 1 if interp == "mean23" else 0
+    amaze_per_batch = {"amaze_edge_pick": 0, "amaze_demosaic": 0, "amaze_raster_passes": 0} \
+        if interp == "mean23" else {"amaze_edge_pick": 1, "amaze_demosaic": 1, "amaze_raster_passes": 5}
     total = {}
     cases = [
         ("5D3", size, frames, 0x80000285, "Canon EOS 5D Mark III", False, [], {}),
@@ -817,12 +1114,12 @@ def dual_iso_full_path(work, card, device="cuda", frames=32, size=(1920, 1080),
     clips = {}
     for tag, (w, h), n, model, name, odd_plain, extra, flags in cases:
         data = dual_iso_frames(n, w, h, odd_plain, seed=80)
-        clip = os.path.join(work, f"dif_{model:x}", "MDIF.MLV")
+        clip = os.path.join(work, f"dif_{interp}_{model:x}", "MDIF.MLV")
         clips[tag] = clip
         synth_clip(clip, n, w, h, model, name, frame_data=data, dual_iso=3)
-        out = os.path.join(work, f"dif_{model:x}_out")
+        out = os.path.join(work, f"dif_{interp}_{model:x}_out")
         reset_launches()
-        secs, _ = convert_cli(clip, out, device, *DUAL_ISO_FULL, "--no-idx", *extra)
+        secs, _ = convert_cli(clip, out, device, *program, "--no-idx", *extra)
         launches = read_launches()
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
@@ -833,6 +1130,10 @@ def dual_iso_full_path(work, card, device="cuda", frames=32, size=(1920, 1080),
               f"dual-ISO full {tag}: alias kernel launches {launches['alias_filter']} == {batches}")
         check(launches["chroma_smooth"] == 0 and launches["dualiso_preview"] == 0,
               f"dual-ISO full {tag}: no 16-bit chroma or preview kernel ({launches})")
+        for name, per_batch in amaze_per_batch.items():
+            check(launches[name] == per_batch * batches,
+                  f"dual-ISO full {tag} {interp}: {name} launches {launches[name]} == "
+                  f"{per_batch} x {batches}")
         converted = 0
         for i, p in enumerate(files):
             dual = not (odd_plain and i % 2)
@@ -840,10 +1141,10 @@ def dual_iso_full_path(work, card, device="cuda", frames=32, size=(1920, 1080),
             got = dng_levels(read(p))
             check(got == want, f"dual-ISO full {tag} frame {i}: levels {got} == {want}")
             converted += dual
-        ref_out = os.path.join(work, f"dif_{model:x}_cpu")
+        ref_out = os.path.join(work, f"dif_{interp}_{model:x}_cpu")
         t0 = time.perf_counter()
         convert_clip(clip, ref_out, ProcessingConfig(
-            device="cpu", dual_iso=2, hdr_interpolation_method=1, use_sidecar_idx=False, **flags),
+            device="cpu", dual_iso=2, hdr_interpolation_method=method, use_sidecar_idx=False, **flags),
             frames=range(n_ref))
         cpu_secs = time.perf_counter() - t0
         worst_psnr, worst_share = math.inf, 0.0
@@ -861,12 +1162,14 @@ def dual_iso_full_path(work, card, device="cuda", frames=32, size=(1920, 1080),
             check(pv >= 90 and share <= 0.03, f"dual-ISO full {tag} {os.path.basename(p)}: {device} "
                   f"vs cpu PSNR {pv:.1f} dB >= 90, {100 * share:.4f} % of pixels differ <= 3 %")
             worst_psnr, worst_share = min(worst_psnr, pv), max(worst_share, share)
-        print(f"convert {tag} {w}x{h} 14-bit dual-ISO {' '.join([*DUAL_ISO_FULL, *extra])}, {n} frames, "
+        print(f"convert {tag} {w}x{h} 14-bit dual-ISO {' '.join([*program, *extra])}, {n} frames, "
               f"--device {device}: {secs:.3f} s, {n / secs:.1f} f/s; launches {launches}; {converted} "
               f"frames converted at x4 levels, the rest at their own; first {n_ref} DNGs vs cpu "
               f"({cpu_secs:.1f} s on the cpu): headers and unconverted frames equal, converted "
               f"frames PSNR >= {worst_psnr:.1f} dB, at most {100 * worst_share:.4f} % of pixels "
               f"differ [{card}]")
+    if interp != "mean23":
+        return total
     out = os.path.join(work, "dif_noalias_out")
     reset_launches()
     secs, _ = convert_cli(clips["5D3"], out, device, *DUAL_ISO_FULL, "--no-alias-map", "--no-idx")
@@ -904,16 +1207,17 @@ def compressed_variants(work, device="cuda", frames=8, size=(1920, 1080)):
 
 def breakdown(work, card, frames):
     """``--breakdown N``: the per-layer times of the flags-on, pattern-noise,
-    preview and full dual-ISO steps, then each of the four programs as an
-    N-frame 1080p convert: twice, and once under torch.profiler."""
+    preview and full dual-ISO steps (mean23 and amaze-edge), then each of
+    the five programs as an N-frame 1080p convert: twice, and once under
+    torch.profiler."""
     import numpy as np
     import torch
 
     import types
 
-    from mlvfs_tpu_torch.ops import (alias, chroma_smooth, dualiso, dualiso_analysis_dev,
-                                     dualiso_full, histogram, patternnoise, patternnoise_fused,
-                                     pixels, stripes, unpack)
+    from mlvfs_tpu_torch.ops import (alias, amaze, amaze_core, amaze_edge, chroma_smooth, dualiso,
+                                     dualiso_analysis_dev, dualiso_full, histogram, patternnoise,
+                                     patternnoise_fused, pixels, stripes, unpack)
     from mlvfs_tpu_torch.utils import metrics
 
     w, h, b, black, white = 1920, 1080, 16, 2048, 15000
@@ -968,6 +1272,24 @@ def breakdown(work, card, frames):
     finally:
         dualiso_full.alias_ops.alias_filter = alias_filter
     alias_map, alias_skip = captured["args"]
+    # the amaze-edge reconstruction's own AMaZE mosaics and edge-pick inputs
+    amaze_kw = dict(recon_kw, interp_method=0)
+    demosaic, edge_pick = amaze.amaze_demosaic, amaze.edge_pick
+
+    def capture_demosaic(sq):
+        captured["squeezed"] = sq
+        return demosaic(sq)
+
+    def capture_edge(*args):
+        captured["edge"] = args
+        return edge_pick(*args)
+
+    amaze.amaze_demosaic, amaze.edge_pick = capture_demosaic, capture_edge
+    try:
+        dualiso_full.reconstruct_batch(di_imgs, *scalars, **amaze_kw)
+    finally:
+        amaze.amaze_demosaic, amaze.edge_pick = demosaic, edge_pick
+    squeezed, edge_args = captured["squeezed"], captured["edge"]
 
     layers = [
         ("unpack kernel", lambda: unpack.unpack_batch(words, 14, h, w)),
@@ -985,10 +1307,20 @@ def breakdown(work, card, frames):
         ("dual-ISO full: reconstruction (mean23, alias map)",
          lambda: dualiso_full.reconstruct_batch(di_imgs, *scalars, **recon_kw)),
         ("  alias kernel #7 on the reconstruction's map", lambda: alias.alias_filter(alias_map, alias_skip)),
+        ("dual-ISO full: reconstruction (amaze-edge, alias map)",
+         lambda: dualiso_full.reconstruct_batch(di_imgs, *scalars, **amaze_kw)),
+        ("  AMaZE demosaic, kernels #8 + #10, on its squeezed frames",
+         lambda: amaze_core.amaze_demosaic(squeezed)),
+        ("  edge kernel #6 on its EV planes", lambda: amaze_edge.edge_pick(*edge_args)),
         ("bad-pixel fix", lambda: pixels.fix_pixel_list_batch(imgs, bad, black, 0, 0, False)),
         ("chroma kernel cs3x3", lambda: chroma_smooth.chroma_smooth_batch(imgs, 3, black)),
         ("stripe apply", lambda: stripes.apply_correction_batch(imgs, gains, black, white)),
     ]
+    window = torch.zeros_like(edge_args[4])
+    window[:, 5:-5, 5:-5] = True
+    n_scored = int((window & ~edge_args[4]).sum())
+    print(f"the amaze-edge reconstruction's edge pick scores {n_scored} of {edge_args[4].numel()} "
+          f"pixels ({100 * n_scored / edge_args[4].numel():.1f} %) on these frames [{card}]")
     for name, fn in layers:
         device_ms = _median_ms(fn)
         host = []
@@ -1006,6 +1338,7 @@ def breakdown(work, card, frames):
         ("dual-ISO preview", ["--dual-iso-preview"], dual_iso_frames(frames, w, h),
          {"dual_iso": 3}),
         ("dual-ISO full", DUAL_ISO_FULL, dual_iso_frames(frames, w, h), {"dual_iso": 3}),
+        ("dual-ISO amaze-edge", DUAL_ISO_AMAZE, dual_iso_frames(frames, w, h), {"dual_iso": 3}),
     ]
     for label, flags, data, spec in programs:
         clip = os.path.join(work, "bd", "MBD.MLV")
@@ -1101,6 +1434,8 @@ def main() -> int:
     pn_rows, split_launches = pn_vs_plain(card)
     preview_row = preview_vs_plain(card)
     alias_row = alias_vs_plain(card)
+    edge_row = edge_vs_plain(card)
+    amaze_rows = amaze_vs_plain(card)
     try:
         reset_launches()
         default_launches = main_path(work, card=card)
@@ -1110,18 +1445,21 @@ def main() -> int:
         flags_launches = flags_on_path(work, card)
         pn_launches = pattern_noise_path(work, card)
         di_launches = dual_iso_path(work, card)
-        full_launches = dual_iso_full_path(work, card)
+        full_launches = dual_iso_full_path(work, card, n_ref=2)
+        amaze_launches = dual_iso_full_path(work, card, n_ref=2, interp="amaze")
         compressed_variants(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     check_no_reference("the port ran")
 
     rows = {"unpack": unpack_row, "chroma_smooth": chroma_rows[3],  # the path's --cs3x3
-            **pn_rows, "dualiso_preview": preview_row, "alias_filter": alias_row}
+            **pn_rows, "dualiso_preview": preview_row, "alias_filter": alias_row,
+            "amaze_edge_pick": edge_row, **amaze_rows}
     launches = {name: flags_launches[name] + pn_launches[name] + di_launches[name] + full_launches[name]
-                for name in rows}
+                + amaze_launches[name] for name in rows}
     launches["unpack"] += default_launches
-    for name in ("pn_blur_interleaved", "dualiso_preview", "alias_filter"):
+    for name in ("pn_blur_interleaved", "dualiso_preview", "alias_filter", "amaze_edge_pick",
+                 "amaze_demosaic", "amaze_raster_passes"):
         check(launches[name] > 0, f"the main paths launched {name}")
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": KERNELS[name][0],

@@ -1,8 +1,9 @@
 """Build and bind the hand-written CUDA kernels under ``csrc/``.
 
-Each kernel source is compiled by ``nvcc`` for ``sm_90a`` into a shared
-library with a plain C entry point and loaded with ``ctypes`` (no PyTorch
-headers, so a build takes seconds). Libraries go to ``mlvfs_tpu_torch/build/``
+Each kernel source is compiled by ``nvcc`` for ``sm_90a`` (plus its own
+``EXTRA_FLAGS``) into a shared library with a plain C entry point and
+loaded with ``ctypes`` (no PyTorch headers, so a build takes seconds).
+Libraries go to ``mlvfs_tpu_torch/build/``
 under a name that carries a hash of the source and the flags, so an edited
 source is rebuilt at its next use and a stale library is never loaded.
 
@@ -27,6 +28,18 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
+# Sources whose float arithmetic must round as their plain twins do: nvcc
+# contracts a multiply feeding an add into an FMA unless told not to, and
+# these fuse (``__fmaf_rn``) only where their twins fuse.
+EXTRA_FLAGS = {
+    "amaze": ("-fmad=false",),
+    "amaze_scans": ("-fmad=false",),
+}
+
+
+def flags(name: str) -> tuple:
+    """nvcc flags of csrc/<name>.cu."""
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
 
 # C signatures of the entry points, per source file
 _SIGNATURES = {
@@ -104,6 +117,62 @@ _SIGNATURES = {
             ],
         ),
     },
+    "amaze": {
+        "mlvfs_amaze_stage": (
+            ctypes.c_int,
+            [
+                ctypes.c_int,  # stage group 1..5
+                ctypes.c_void_p,  # workspace float32 (N_PLANES, batch, hp, wp)
+                *[ctypes.c_void_p] * 3,  # red, green, blue float32 (batch, hp - 32, wp - 32)
+                ctypes.c_longlong,  # batch
+                ctypes.c_longlong,  # hp (padded height)
+                ctypes.c_longlong,  # wp (padded width, even)
+                ctypes.c_void_p,  # cudaStream_t
+            ],
+        ),
+    },
+    "amaze_scans": {
+        **{fn: (
+            ctypes.c_int,
+            [
+                ctypes.c_void_p,  # in (batch, hp, wp), float32 or int32 (dilate)
+                ctypes.c_void_p,  # out, the same
+                ctypes.c_longlong,  # batch
+                ctypes.c_longlong,  # hp
+                ctypes.c_longlong,  # wp (even)
+                ctypes.c_longlong,  # tiles of the 160/128 grid
+                ctypes.c_void_p,  # cudaStream_t
+            ],
+        ) for fn in ("mlvfs_amaze_refine", "mlvfs_amaze_dilate")},
+        "mlvfs_amaze_chroma": (
+            ctypes.c_int,
+            [
+                ctypes.c_void_p,  # in float32 (batch, hp, wp)
+                ctypes.c_void_p,  # out float32 (batch, hp, wp)
+                ctypes.c_longlong,  # batch
+                ctypes.c_longlong,  # hp
+                ctypes.c_longlong,  # wp (even)
+                ctypes.c_longlong,  # tiles of the 160/128 grid
+                ctypes.c_int,  # the parity of the rows it updates
+                ctypes.c_void_p,  # cudaStream_t
+            ],
+        ),
+    },
+    "amaze_edge": {
+        "mlvfs_amaze_edge_pick": (
+            ctypes.c_int,
+            [
+                *[ctypes.c_void_p] * 3,  # evgray, EW_a, EW_b int32 (batch, height, width)
+                ctypes.c_void_p,  # row signs int32 (batch, height)
+                ctypes.c_void_p,  # restricted bool (batch, height, width)
+                ctypes.c_void_p,  # out int32 (batch, height, width)
+                ctypes.c_longlong,  # batch
+                ctypes.c_longlong,  # height
+                ctypes.c_longlong,  # width
+                ctypes.c_void_p,  # cudaStream_t
+            ],
+        ),
+    },
     "alias": {
         "mlvfs_alias_filter": (
             ctypes.c_int,
@@ -141,14 +210,14 @@ def _nvcc() -> str:
 def library_path(name: str) -> str:
     """Where the library of ``csrc/<name>.cu`` is (or will be) built."""
     with open(os.path.join(SRC_DIR, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        digest = hashlib.sha256(f.read() + " ".join(flags(name)).encode()).hexdigest()[:16]
     return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
 
 
 def _compile(name: str, out: str) -> None:
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(SRC_DIR, name + ".cu")]
+    cmd = [_nvcc(), *flags(name), "-o", tmp, os.path.join(SRC_DIR, name + ".cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(

@@ -8,11 +8,11 @@ Counterpart of ``mlvfs_tpu/cli.py`` for the ported slice:
 
 The flag surface is the reference's, plus ``--device``. Ported: the
 processing flags ``--deflicker``, ``--fix-pattern-noise``,
-``--dual-iso-preview``, ``--dual-iso --mean23`` (with ``--no-alias-map``,
+``--dual-iso-preview``, ``--dual-iso`` with either interpolation
+(amaze-edge, the default, or ``--mean23``; with ``--no-alias-map``,
 ``--no-fullres``), ``--cs2x2/--cs3x3/--cs5x5``, ``--stripes``, ``--bad-pix``
 and ``--really-bad-pix``. Flags whose slices are not ported yet
-(``--dual-iso`` with the default amaze-edge interpolation,
-``--stripes-batch-cal``, ``--devices N>1``) parse, then the command fails
+(``--stripes-batch-cal``, ``--devices N>1``) parse, then the command fails
 with a message naming the flag.
 """
 
@@ -41,8 +41,8 @@ def _add_processing_flags(p: argparse.ArgumentParser):
                         "(not ported yet)")
     p.add_argument("--deflicker", type=int, default=0, metavar="N", help="Per-frame exposure compensation target median")
     p.add_argument("--dual-iso-preview", action="store_true", help="Preview Dual ISO files (fast; frames not detected as dual-ISO are converted normally)")
-    p.add_argument("--dual-iso", action="store_true", help="Render Dual ISO files (high quality; ported with --mean23 only)")
-    p.add_argument("--amaze-edge", action="store_true", help="Dual ISO interpolation: high quality (default; not ported yet)")
+    p.add_argument("--dual-iso", action="store_true", help="Render Dual ISO files (high quality)")
+    p.add_argument("--amaze-edge", action="store_true", help="Dual ISO interpolation: high quality (default)")
     p.add_argument("--mean23", action="store_true", help="Dual ISO interpolation: fast")
     p.add_argument("--no-alias-map", action="store_true", help="Dual ISO: disable alias map")
     p.add_argument("--alias-map", action="store_true", help="Dual ISO: enable alias map (default)")

@@ -1,12 +1,13 @@
-"""Dual-ISO full-quality reconstruction (--dual-iso --mean23): the cr2hdr
-20-bit path in PyTorch.
+"""Dual-ISO full-quality reconstruction (--dual-iso): the cr2hdr 20-bit path
+in PyTorch.
 
 Counterpart of ``mlvfs_tpu/ops/dualiso_full.py`` (cr2hdr20_convert_data →
-hdr_interpolate, hdr.c:1774-1957) with the mean23 interpolation:
+hdr_interpolate, hdr.c:1774-1957) with both interpolations:
 
   hdr_check → focus/bad pixel fix → RGGB/GBRG → bright/dark fields →
-  white detect → promote to 20 bit → exposure matching → mean23
-  interpolation of the missing exposure per row → borders → full-res
+  white detect → promote to 20 bit → exposure matching → interpolation
+  of the missing exposure (amaze-edge, ``ops/amaze.py`` with kernels #6,
+  #8 and #10; or mean23 per row) → borders → full-res
   reconstruction → half-res EV-space blend (+ 20-bit chroma smoothing +
   alias map, kernel #7) → overexposure blur → final blend → 16-bit out.
 
@@ -15,7 +16,9 @@ and is read back once per batch (the conversion mask, and on a clip's first
 batch the white level); with ``exact_luts`` it runs on the host in float64
 (``dualiso_analysis``). The reconstruction is plain torch over the batch,
 per-frame scalars as (B,) tensors, except the alias filter chain, which is
-``ops/alias.py`` (the CUDA kernel on a CUDA tensor).
+``ops/alias.py`` (the CUDA kernel on a CUDA tensor), and amaze-edge's
+demosaic and edge pick (``ops/amaze_core.py``, ``ops/amaze_scans.py``,
+``ops/amaze_edge.py``, CUDA kernels on a CUDA tensor).
 
 Float32 stages follow the reference's operation order with the fused
 multiply-adds XLA on the CPU forms (``evmath.fma``); the EV transforms are
@@ -36,6 +39,7 @@ import torch
 from . import alias as alias_ops
 from . import evmath
 from .alias import shift
+from .amaze import amaze_edge_interpolate
 from .dualiso_analysis_dev import tdiv, u16
 from .evmath import fma
 from .luts import EV_RESOLUTION, ev2raw_lut20, fullres_curve, raw2ev_lut20
@@ -110,23 +114,28 @@ def _mean23_interpolate(p, ev, ev2raw_at, row_bright, s, evw_row):
     region = (ys >= 2) & (ys <= h - 3) & (xs >= 2) & (xs <= w - 3)
     interp = torch.where(region, interp_main, 0)
     native = torch.where(region, p, 0)
-
-    # borders, in the reference's order
-    top = ys < 3
-    interp = torch.where(top, shift(p, 2, 0), interp)
-    native = torch.where(top, p, native)
-    bot = ys >= h - 4
-    interp = torch.where(bot, shift(p, -2, 0), interp)
-    native = torch.where(bot, p, native)
-    left = (ys >= 2) & (xs < 2)
-    interp = torch.where(left, shift(p, -2, 0), interp)
-    native = torch.where(left, p, native)
-    right = (ys >= 2) & (xs >= w - 3)
-    interp = torch.where(right, shift(p, -2, -2), interp)
-    native = torch.where(right, shift(p, 0, -2), native)
-
     rb = row_bright[:, :, None]
-    return torch.where(rb, interp, native), torch.where(rb, native, interp)
+    return _apply_borders(p, torch.where(rb, interp, native), torch.where(rb, native, interp),
+                          row_bright)
+
+
+def _apply_borders(p, dark, bright, row_bright):
+    """The border interpolation (hdr.c:1306-1353) over (B, H, W) dark/bright
+    frames, in the reference's order: the top 3 and bottom 4 rows, then the
+    left 2 and right 3 columns from row 2 down."""
+    _, h, w = p.shape
+    ys, xs = _grid(h, w, p.device)
+    rb = row_bright[:, :, None]
+
+    def put(dark, bright, mask, interp_val, native_val):
+        d = torch.where(mask, torch.where(rb, interp_val, native_val), dark)
+        b = torch.where(mask, torch.where(rb, native_val, interp_val), bright)
+        return d, b
+
+    dark, bright = put(dark, bright, ys < 3, shift(p, 2, 0), p)
+    dark, bright = put(dark, bright, ys >= h - 4, shift(p, -2, 0), p)
+    dark, bright = put(dark, bright, (ys >= 2) & (xs < 2), shift(p, -2, 0), p)
+    return put(dark, bright, (ys >= 2) & (xs >= w - 3), shift(p, -2, -2), shift(p, 0, -2))
 
 
 def _build_alias_map(fullres_smooth, halfres_smooth, fe, he, fr_bright):
@@ -176,10 +185,8 @@ def reconstruct_batch(imgs, row_bright, s, a, b20, white_darkened, corr_ev, over
     """Reconstruct a batch (B, H, W) int16 (u16 bits) of interlaced frames →
     (B, H, W) int16 16-bit output. ``row_bright``/``s`` are (B, H) bool/int32,
     the rest (B,) per-frame scalars, all on the batch's device."""
-    if interp_method != 1:
-        raise NotImplementedError(
-            "--dual-iso with --amaze-edge interpolation (hdr_interpolation_method=0) is not "
-            "ported to mlvfs_tpu_torch yet; use --mean23")
+    if interp_method not in (0, 1):
+        raise ValueError(f"interp_method is 0 (amaze-edge) or 1 (mean23), got {interp_method}")
     dev = imgs.device
     white_ev = white_ev_of(black20, white20)
     if exact_luts or cs_method:
@@ -221,10 +228,14 @@ def reconstruct_batch(imgs, row_bright, s, a, b20, white_darkened, corr_ev, over
     adj = torch.clamp(torch.trunc(torch.where(rb, darkened, lifted)), 0, 0xFFFFF).to(torch.int32)
     raw = torch.where(raw == 0, 0, adj)
 
-    ev = ev_of(raw)
     wd = white_darkened.to(torch.int32)
-    white_row = torch.where(row_bright, white20, wd[:, None]).to(torch.int32)
-    dark, bright = _mean23_interpolate(raw, ev, ev2raw_at, row_bright, s, ev_of(white_row))
+    if interp_method == 0:
+        dark, bright = amaze_edge_interpolate(raw, ev2raw_at, row_bright, s, ev_of, frcurve_of, wd,
+                                              black20=black20)
+        dark, bright = _apply_borders(raw, dark, bright, row_bright)
+    else:
+        white_row = torch.where(row_bright, white20, wd[:, None]).to(torch.int32)
+        dark, bright = _mean23_interpolate(raw, ev_of(raw), ev2raw_at, row_bright, s, ev_of(white_row))
 
     # full-res reconstruction (hdr.c:1355-1380)
     wd3 = per_frame(wd)

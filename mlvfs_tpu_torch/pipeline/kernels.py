@@ -15,10 +15,11 @@ the reference decides per frame whether the frame is dual-ISO
 normal-mode fixes and their own levels in every later step
 (``mlvfs_tpu/pipeline/kernels.py:79-204``); ``--dual-iso`` likewise, and it
 smooths chroma at 20 bits inside the reconstruction, so the 16-bit chroma
-step is skipped (frames it did not convert get no smoothing). Its amaze-edge
-interpolation and the whole-batch stripe calibration belong to slices that
-are not ported yet and are refused with NotImplementedError naming the flag,
-never passed over silently.
+step is skipped (frames it did not convert get no smoothing); both of its
+interpolations are ported (amaze-edge, the default, and ``--mean23``). The
+whole-batch stripe calibration belongs to a slice that is not ported yet
+and is refused with NotImplementedError naming the flag, never passed over
+silently.
 """
 
 from __future__ import annotations
@@ -34,11 +35,6 @@ from .config import ProcessingConfig
 def check_supported(cfg: ProcessingConfig) -> None:
     """Raise NotImplementedError if ``cfg`` asks for a processing step whose
     slice is not ported to mlvfs_tpu_torch yet."""
-    if cfg.dual_iso == 2 and cfg.hdr_interpolation_method == 0:
-        raise NotImplementedError(
-            "--dual-iso without --mean23 (dual_iso=2 with the amaze-edge interpolation, "
-            "hdr_interpolation_method=0) is not ported to mlvfs_tpu_torch yet; add --mean23, "
-            "or use mlvfs_tpu for it")
     if cfg.stripes_batch_cal:
         raise NotImplementedError(
             "--stripes-batch-cal (stripes_batch_cal=True) is not ported to mlvfs_tpu_torch yet; "

@@ -1,4 +1,5 @@
-"""Full dual-ISO (--dual-iso --mean23) in the port vs mlvfs_tpu on CPU JAX.
+"""Full dual-ISO (--dual-iso, amaze-edge and --mean23) in the port vs mlvfs_tpu
+on CPU JAX.
 
 Tolerances, and why:
 - bit-exact: the alias filter chain (kernel #7's twin, against the XLA form
@@ -10,7 +11,9 @@ Tolerances, and why:
 - the exposure fit: the same ok and chosen candidate, a and b within one
   ulp, white_darkened within 1 (float32 scoring; measured: equal);
 - converted frames (and the whole reconstruction at the same scalars, in
-  both exact_luts modes): PSNR >= 90 dB over the 16-bit output and at most
+  both exact_luts modes, with mean23 and with amaze-edge, whose AMaZE
+  demosaic the reference computes in float32 with XLA's own fused
+  multiply-adds): PSNR >= 90 dB over the 16-bit output and at most
   3 % of pixels different, the reference's own gate between backends
   (tests/test_parity_dualiso_full.py:50-53). The port reproduces XLA's
   float32 log, exp and fused multiply-adds, but not its cos; measured on
@@ -39,7 +42,8 @@ from mlvfs_tpu.pipeline.config import ProcessingConfig as RefConfig
 from mlvfs_tpu_torch import cli
 from mlvfs_tpu_torch.format import synth
 from mlvfs_tpu_torch.format.reader import MLVClip
-from mlvfs_tpu_torch.ops import alias, chroma_smooth, dualiso_analysis, dualiso_analysis_dev as dev
+from mlvfs_tpu_torch.ops import alias, amaze_core, amaze_edge, chroma_smooth, dualiso_analysis
+from mlvfs_tpu_torch.ops import dualiso_analysis_dev as dev
 from mlvfs_tpu_torch.ops import dualiso_full as full
 from mlvfs_tpu_torch.ops import evmath, luts, pixels
 from mlvfs_tpu_torch.pipeline import kernels
@@ -333,17 +337,18 @@ def _ref_scalars(frames, y_off, hh):
     return [np.asarray(v) for v in ref_full._analyze_batch(j, is_hdr, y_off, hh, BLACK)]
 
 
-@pytest.mark.parametrize("exact", [False, True])
-@pytest.mark.parametrize("fullres, alias_map, cs", [(0, 1, 0), (1, 0, 0), (1, 1, 3), (0, 0, 5)])
-def test_reconstruct_batch_matches_reference(exact, fullres, alias_map, cs):
-    """The reconstruction at the reference's own scalars, in the four option
-    cases of tests/test_parity_dualiso_full.py:58, over the four dark-row
-    phases."""
+def _counts():
+    return [m.KERNEL_LAUNCHES for m in (alias, amaze_core, amaze_edge)]
+
+
+def _check_reconstruct(interp_method, exact, fullres, alias_map, cs):
+    """The reconstruction at the reference's own scalars over the four
+    dark-row phases, against the reference, on the CPU's plain twins."""
     _, frames = _frames([0, 1, 2, 3])
     ok, rb, s, a, b20, wd, ce, ov, w20 = _ref_scalars(frames, 0, H)
     assert ok.all()
     white20 = int(w20[0])
-    kw = dict(black20=BLACK20, white20=white20, interp_method=1, use_fullres=bool(fullres),
+    kw = dict(black20=BLACK20, white20=white20, interp_method=interp_method, use_fullres=bool(fullres),
               use_alias=bool(alias_map), cs_method=cs, exact_luts=exact)
     lut = jnp.asarray(luts.raw2ev_lut20(BLACK20, white20))
     inv = jnp.asarray(luts.ev2raw_lut20(BLACK20, white20))
@@ -351,42 +356,64 @@ def test_reconstruct_batch_matches_reference(exact, fullres, alias_map, cs):
     want = np.asarray(ref_full.reconstruct_batch(
         jnp.asarray(frames), *map(jnp.asarray, (rb, s, a, b20, wd, ce, ov)), lut, inv, frc,
         white_ev=full.white_ev_of(BLACK20, white20), arith=False, **kw))
-    before = alias.KERNEL_LAUNCHES
+    before = _counts()
     got = full.reconstruct_batch(_t(frames.view(np.int16)), *map(_t, (rb, s, a, b20, wd, ce, ov)), **kw)
-    assert alias.KERNEL_LAUNCHES == before  # the CPU runs the plain twin
-    _assert_close_frames(got.numpy().view(np.uint16), want,
-                         f"reconstruct exact={exact} fullres={fullres} alias={alias_map} cs={cs}")
+    assert _counts() == before  # the CPU runs the plain twins
+    _assert_close_frames(got.numpy().view(np.uint16), want, f"reconstruct interp={interp_method} "
+                         f"exact={exact} fullres={fullres} alias={alias_map} cs={cs}")
 
 
-def test_amaze_edge_is_refused():
+@pytest.mark.parametrize("exact", [False, True])
+@pytest.mark.parametrize("fullres, alias_map, cs", [(0, 1, 0), (1, 0, 0), (1, 1, 3), (0, 0, 5)])
+def test_reconstruct_batch_matches_reference(exact, fullres, alias_map, cs):
+    """mean23, in the four option cases of tests/test_parity_dualiso_full.py:58."""
+    _check_reconstruct(1, exact, fullres, alias_map, cs)
+
+
+@pytest.mark.parametrize("exact, fullres, alias_map, cs", [(False, 1, 1, 0), (True, 1, 0, 3)])
+def test_reconstruct_batch_amaze_edge_matches_reference(exact, fullres, alias_map, cs):
+    """amaze-edge (the default, interp_method=0), in both transform modes."""
+    _check_reconstruct(0, exact, fullres, alias_map, cs)
+
+
+def test_reconstruct_batch_refuses_unknown_interpolation():
     _, frames = _frames([0])
     rb, s = (_t(v[None]) for v in _phase_rows(0, H))
     one = torch.ones(1)
-    with pytest.raises(NotImplementedError, match="--amaze-edge"):
+    with pytest.raises(ValueError, match="interp_method"):
         full.reconstruct_batch(_t(frames.view(np.int16)), rb, s, one, one, one.int(), one, one,
-                               black20=BLACK20, white20=640000, interp_method=0, use_fullres=True,
+                               black20=BLACK20, white20=640000, interp_method=2, use_fullres=True,
                                use_alias=True, cs_method=0, exact_luts=False)
+
+
+def _check_cr2hdr20(tmp_path, interp_method, exact, gbrg):
+    """The whole batch step: the four phases (or GBRG frames, whose
+    reconstruction starts a row down, so AMaZE sees RGGB) and a single-ISO
+    frame, which is not converted and keeps its bytes; the per-clip Bayer
+    order and white level land in the calibration."""
+    spec, frames = _frames(KINDS, seed=21, gbrg=gbrg)
+    rfh, pfh = _fh(tmp_path, spec, frames)
+    cfg = dict(dual_iso=2, hdr_interpolation_method=interp_method, exact_luts=exact)
+    rcal, pcal = ref_kernels.ClipCalibration(), kernels.ClipCalibration()
+    want, wok = ref_full.cr2hdr20_batch(jnp.asarray(frames), rfh, RefConfig(**cfg), rcal)
+    got, gok = full.cr2hdr20_batch(_t(frames.view(np.int16)), pfh, PortConfig(device="cpu", **cfg), pcal)
+    want, got = np.asarray(want), got.numpy().view(np.uint16)
+    assert gok.tolist() == np.asarray(wok).tolist() == [True, True, True, True, False]
+    np.testing.assert_array_equal(got[4], frames[4])
+    np.testing.assert_array_equal(got[4], want[4])
+    _assert_close_frames(got[:4], want[:4], f"cr2hdr20 interp={interp_method} exact={exact} gbrg={gbrg}")
+    assert (pcal.dual_iso_rggb, pcal.dual_iso_white20) == (rcal.dual_iso_rggb, rcal.dual_iso_white20)
 
 
 @pytest.mark.parametrize("exact", [False, True])
 @pytest.mark.parametrize("gbrg", [False, True])
 def test_cr2hdr20_batch_matches_reference(tmp_path, exact, gbrg):
-    """The whole batch step: the four phases (or GBRG frames) and a
-    single-ISO frame, which is not converted and keeps its bytes; the
-    per-clip Bayer order and white level land in the calibration."""
-    spec, frames = _frames(KINDS, seed=21, gbrg=gbrg)
-    rfh, pfh = _fh(tmp_path, spec, frames)
-    cfg = dict(dual_iso=2, hdr_interpolation_method=1, exact_luts=exact)
-    rcal, pcal = ref_kernels.ClipCalibration(), kernels.ClipCalibration()
-    want, wok = ref_full.cr2hdr20_batch(jnp.asarray(frames), rfh, RefConfig(**cfg), rcal)
-    got, gok = full.cr2hdr20_batch(_t(frames.view(np.int16)), pfh, PortConfig(device="cpu", **cfg), pcal)
-    want, got = np.asarray(want), got.numpy().view(np.uint16)
-    np.testing.assert_array_equal(gok, np.asarray(wok))
-    assert gok.tolist() == [True, True, True, True, False]
-    np.testing.assert_array_equal(got[4], frames[4])
-    np.testing.assert_array_equal(got[4], want[4])
-    _assert_close_frames(got[:4], want[:4], f"cr2hdr20 exact={exact} gbrg={gbrg}")
-    assert (pcal.dual_iso_rggb, pcal.dual_iso_white20) == (rcal.dual_iso_rggb, rcal.dual_iso_white20)
+    _check_cr2hdr20(tmp_path, 1, exact, gbrg)
+
+
+@pytest.mark.parametrize("gbrg", [False, True])
+def test_cr2hdr20_batch_amaze_edge_matches_reference(tmp_path, gbrg):
+    _check_cr2hdr20(tmp_path, 0, False, gbrg)
 
 
 # ------------------------------------------------------- the whole pipeline
@@ -442,39 +469,39 @@ def _tree(outdir):
     return {n: open(os.path.join(outdir, n), "rb").read() for n in sorted(os.listdir(outdir))}
 
 
-@pytest.mark.parametrize("flags", [[], ["--no-alias-map", "--cs3x3"],
-                                   ["--bad-pix", "--cs2x2", "--stripes"]])
-def test_cli_convert_matches_reference(flags, tmp_path):
-    """``convert CLIP --dual-iso --mean23`` on a clip whose fourth frame is
+def _check_cli(tmp_path, program, flags):
+    """``convert CLIP`` with ``program`` on a clip whose fourth frame is
     single-ISO: the same DNG names, byte-identical headers (x4 levels on the
     converted frames) and frames not converted, payloads within the PSNR
     gate."""
     spec, frames = _frames([0, 1, 2, None, 3], seed=5)
     src = str(tmp_path / "C.MLV")
     synth.write_mlv(src, spec, frame_data=frames)
-    args = [src, "--dual-iso", "--mean23", "--no-idx", "--batch-size", "2", *flags]
+    args = [src, *program, "--no-idx", "--batch-size", "2", *flags]
     assert ref_cli.main(["convert", "-o", str(tmp_path / "ref"), *args]) == 0
     assert cli.main(["convert", "-o", str(tmp_path / "port"), "--device", "cpu", *args]) == 0
     ref, port = _tree(tmp_path / "ref"), _tree(tmp_path / "port")
     assert list(port) == list(ref) and len(port) == 5
     for i, name in enumerate(ref):
         assert port[name][:65536] == ref[name][:65536], name
-        levels = (BLACK, WHITE) if i == 3 else (4 * BLACK, 4 * WHITE)
-        assert _levels(port[name]) == levels
-        g = np.frombuffer(port[name], "<u2", offset=65536)
-        r = np.frombuffer(ref[name], "<u2", offset=65536)
+        assert _levels(port[name]) == ((BLACK, WHITE) if i == 3 else (4 * BLACK, 4 * WHITE))
         if i == 3:
             assert port[name] == ref[name]
         else:
-            _assert_close_frames(g[None], r[None], f"cli {' '.join(flags)} {name}")
+            g = np.frombuffer(port[name], "<u2", offset=65536)
+            r = np.frombuffer(ref[name], "<u2", offset=65536)
+            _assert_close_frames(g[None], r[None], f"cli {' '.join([*program, *flags])} {name}")
 
 
-def test_cli_dual_iso_without_mean23_fails_clearly(tmp_path, capsys):
-    spec, frames = _frames([0], seed=5)
-    src = str(tmp_path / "C.MLV")
-    synth.write_mlv(src, spec, frame_data=frames)
-    out = str(tmp_path / "out")
-    assert cli.main(["convert", src, "-o", out, "--device", "cpu", "--dual-iso"]) == 2
-    err = capsys.readouterr().err
-    assert "--dual-iso" in err and "--mean23" in err and "not ported" in err
-    assert not os.path.exists(out)
+CLI_FLAGS = [[], ["--no-alias-map", "--cs3x3"], ["--bad-pix", "--cs2x2", "--stripes"]]
+
+
+@pytest.mark.parametrize("flags", CLI_FLAGS)
+def test_cli_convert_matches_reference(flags, tmp_path):
+    _check_cli(tmp_path, ["--dual-iso", "--mean23"], flags)
+
+
+@pytest.mark.parametrize("flags", CLI_FLAGS)
+def test_cli_convert_amaze_edge_matches_reference(flags, tmp_path):
+    """amaze-edge, the default interpolation."""
+    _check_cli(tmp_path, ["--dual-iso"], flags)

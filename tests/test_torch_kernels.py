@@ -17,8 +17,8 @@ import torch
 
 from mlvfs_tpu_torch.format import synth
 from mlvfs_tpu_torch import _build
-from mlvfs_tpu_torch.ops import (alias, chroma_smooth, dualiso, patternnoise, patternnoise_fused,
-                                 pixels, unpack)
+from mlvfs_tpu_torch.ops import (alias, amaze_core, amaze_edge, amaze_scans, chroma_smooth, dualiso,
+                                 patternnoise, patternnoise_fused, pixels, unpack)
 from mlvfs_tpu_torch.pipeline.config import ProcessingConfig
 from mlvfs_tpu_torch.pipeline.convert import convert_clip
 
@@ -319,6 +319,134 @@ def test_dual_iso_convert_on_card_matches_cpu(tmp_path):
             device=device, batch_size=2, dual_iso=2, hdr_interpolation_method=1, fix_bad_pixels=1,
             chroma_smooth=2, fix_stripes=True))
         assert alias.KERNEL_LAUNCHES - before == (3 if device == "cuda" else 0)
+        out = tmp_path / device / "out"
+        trees.append({n: (out / n).read_bytes() for n in sorted(os.listdir(out))})
+    assert list(trees[0]) == list(trees[1]) and len(trees[0]) == 5
+    for i, name in enumerate(trees[0]):
+        card, cpu = trees[0][name], trees[1][name]
+        assert card[:65536] == cpu[:65536], name
+        a = np.frombuffer(card, "<u2", offset=65536).astype(np.float64)
+        b = np.frombuffer(cpu, "<u2", offset=65536).astype(np.float64)
+        if i == 2:
+            assert card == cpu
+        mse = np.mean((a - b) ** 2)
+        assert mse == 0 or 10 * np.log10(65535.0 ** 2 / mse) >= 90, name
+        assert (a != b).mean() <= 0.03, name
+
+
+def _edge_inputs(rng, b, h, w, density):
+    """EV planes with flat areas (where directions tie), row signs of the
+    four dark-row phases, a restricted map of the given density."""
+    ev = lambda: rng.integers(-2 * 32768, 14 * 32768, (b, h, w), dtype=np.int32)  # noqa: E731
+    evgray, ewa, ewb = ev(), ev(), ev()
+    evgray[:, h // 3 :, : w // 2] //= 64
+    ys = np.arange(h)
+    s = np.stack([np.where((((ys - i) % 4) >= 2) == (((ys + 1 - i) % 4) >= 2), -1, 1)
+                  for i in range(b)]).astype(np.int32)
+    restricted = rng.random((b, h, w)) < density
+    return [torch.from_numpy(v) for v in (evgray, ewa, ewb, s, restricted)]
+
+
+@pytest.mark.cuda
+def test_amaze_edge_kernel_matches_plain():
+    """Kernel #6 is bit-equal to its twin (and to the CPU) at 1080p and at
+    odd, even, short and tall sizes, restricted densities 0, 1/2 and 1."""
+    _need_card()
+    rng = np.random.default_rng(9)
+    for b, h, w in [(4, 1080, 1920), (3, 300, 41), (3, 64, 40), (3, 11, 12), (2, 5, 7)]:
+        for density in (0.0, 0.5, 1.0):
+            cpu = _edge_inputs(rng, b, h, w, density)
+            args = [v.cuda() for v in cpu]
+            before = amaze_edge.KERNEL_LAUNCHES
+            got = amaze_edge.edge_pick(*args)
+            assert amaze_edge.KERNEL_LAUNCHES == before + 1
+            want = amaze_edge.edge_pick_plain(*args)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (b, h, w, density)
+            assert torch.equal(got.cpu(), amaze_edge.edge_pick(*cpu)), (b, h, w, density)
+
+
+@pytest.mark.cuda
+def test_amaze_raster_pass_kernels_match_plain():
+    """Kernel #10's three passes are bit-equal to their twins on the 1080p
+    padded frame (9 tiles), two tiles, one short tile and a frame whose last
+    tile reads rows below it."""
+    _need_card()
+    rng = np.random.default_rng(10)
+    for b, hp, wp in [(2, 1112, 1952), (2, 224, 192), (1, 40, 34), (1, 290, 50)]:
+        wt = torch.from_numpy(rng.random((b, hp, wp), np.float32)).cuda()
+        nyq = torch.from_numpy((rng.random((b, hp, wp)) > 0.6).astype(np.int32)).cuda()
+        D = torch.from_numpy(rng.normal(0, 0.1, (b, hp, wp)).astype(np.float32)).cuda()
+        before = amaze_scans.KERNEL_LAUNCHES
+        got = [amaze_scans.refine(wt), amaze_scans.dilate(nyq), amaze_scans.chroma(D, 0),
+               amaze_scans.chroma(D, 1)]
+        assert amaze_scans.KERNEL_LAUNCHES == before + 4
+        want = [amaze_core.refine_plain(wt), amaze_core.dilate_plain(nyq), amaze_core.chroma_plain(D, 0),
+                amaze_core.chroma_plain(D, 1)]
+        torch.cuda.synchronize()
+        for name, g, v in zip(("refine", "dilate", "chroma 0", "chroma 1"), got, want):
+            assert torch.equal(g, v), (name, b, hp, wp, float((g.double() - v.double()).abs().max()))
+
+
+def _mosaic(rng, b, h, w):
+    """RGGB mosaics on the 20-bit scale the reconstruction hands AMaZE: a
+    smooth scene with edges and noise, and a clipped block."""
+    y, x = np.mgrid[0:h, 0:w].astype(np.float64)
+    gains = np.array([[0.85, 1.0], [1.0, 0.55]])[y.astype(int) % 2, x.astype(int) % 2]
+    out = []
+    for i in range(b):
+        base = 9000 + 6000 * np.sin(x / (7.0 + i)) * np.cos(y / 11.0) + 20000 * ((x + 2 * y) % 97 < 18)
+        img = base * gains + rng.normal(0, 60, (h, w))
+        img[h // 3 : h // 2, w // 4 : w // 2] = 900000
+        out.append(np.clip(img, 0, (1 << 20) - 1))
+    return torch.from_numpy(np.stack(out).astype(np.float32))
+
+
+@pytest.mark.cuda
+def test_amaze_demosaic_kernel_matches_plain():
+    """Kernel #8's stages with #10's passes between them are bit-equal to the
+    plain twin, at 1080p, at two tiles and at the smallest frame."""
+    _need_card()
+    rng = np.random.default_rng(11)
+    for b, h, w in [(2, 1080, 1920), (1, 160, 224), (2, 17, 18)]:
+        raw = _mosaic(rng, b, h, w).cuda()
+        before = (amaze_core.KERNEL_LAUNCHES, amaze_scans.KERNEL_LAUNCHES)
+        got = amaze_core.amaze_demosaic(raw)
+        assert (amaze_core.KERNEL_LAUNCHES, amaze_scans.KERNEL_LAUNCHES) == (before[0] + 1, before[1] + 5)
+        want = amaze_core.amaze_demosaic_plain(raw)
+        torch.cuda.synchronize()
+        for g, v in zip(got, want):
+            assert g.shape == (b, h, w) and bool(torch.isfinite(g).all())
+            assert torch.equal(g, v), (b, h, w, float((g - v).abs().max()))
+    with pytest.raises(ValueError):
+        amaze_core.amaze_demosaic(raw[:, :, 1:])
+
+
+@pytest.mark.cuda
+def test_dual_iso_amaze_edge_convert_on_card_matches_cpu(tmp_path):
+    """--dual-iso (amaze-edge) with --bad-pix --cs2x2 --stripes on a clip
+    whose third frame is single-ISO: per batch that holds a converted frame
+    #6, #8 and #7 launch once and #10 five times; headers and the frame that
+    is not converted equal the CPU's, converted frames within PSNR 90 dB and
+    3 % of pixels."""
+    _need_card()
+    import dataclasses
+
+    spec = synth.SynthSpec(width=640, height=192, frames=5, dual_iso=3)
+    rng = np.random.default_rng(12)
+    data = np.stack([synth.make_frame_data(dataclasses.replace(spec, dual_iso=0) if i == 2 else spec,
+                                           rng) for i in range(spec.frames)])
+    counters = (amaze_edge, amaze_core, amaze_scans, alias)
+    trees = []
+    for device in ("cuda", "cpu"):
+        src = tmp_path / device / "C.MLV"
+        src.parent.mkdir()
+        synth.write_mlv(str(src), spec, frame_data=data)
+        before = [m.KERNEL_LAUNCHES for m in counters]
+        convert_clip(str(src), str(tmp_path / device / "out"), ProcessingConfig(
+            device=device, batch_size=2, dual_iso=2, fix_bad_pixels=1, chroma_smooth=2, fix_stripes=True))
+        launched = [m.KERNEL_LAUNCHES - n for m, n in zip(counters, before)]
+        assert launched == ([3, 3, 15, 3] if device == "cuda" else [0, 0, 0, 0])
         out = tmp_path / device / "out"
         trees.append({n: (out / n).read_bytes() for n in sorted(os.listdir(out))})
     assert list(trees[0]) == list(trees[1]) and len(trees[0]) == 5

@@ -1,8 +1,7 @@
 """The port runs without JAX and without the reference package, refuses a CUDA
 device it does not have, converts with the processing flags its slices have
 ported (held against mlvfs_tpu), and refuses the flags whose slices are not
-ported yet (the full dual-ISO reconstruction with the amaze-edge
-interpolation, the whole-batch stripe calibration, multi-GPU batches)."""
+ported yet (the whole-batch stripe calibration, multi-GPU batches)."""
 
 import ast
 import os
@@ -30,7 +29,8 @@ def _tree(outdir):
 def test_port_imports_no_jax(tmp_path):
     """Importing the port and converting a clip with the ported flags on the
     CPU (pattern noise and the dual-ISO preview among them), and a dual-ISO
-    clip with ``--dual-iso --mean23``, loads neither jax nor any module of
+    clip with ``--dual-iso --mean23`` and with ``--dual-iso`` (amaze-edge),
+    loads neither jax nor any module of
     mlvfs_tpu, and opens no file under mlvfs_tpu/: the EOS M clip's bundled
     focus-pixel map and the LJ92 codec (--compress-dng) come from the port's
     own copies."""
@@ -50,6 +50,8 @@ def test_port_imports_no_jax(tmp_path):
         "import mlvfs_tpu_torch.ops.chroma_smooth, mlvfs_tpu_torch.ops.stripes\n"
         "import mlvfs_tpu_torch.ops.patternnoise_fused, mlvfs_tpu_torch.ops.dualiso\n"
         "import mlvfs_tpu_torch.ops.dualiso_full, mlvfs_tpu_torch.ops.alias\n"
+        "import mlvfs_tpu_torch.ops.amaze, mlvfs_tpu_torch.ops.amaze_core\n"
+        "import mlvfs_tpu_torch.ops.amaze_scans, mlvfs_tpu_torch.ops.amaze_edge\n"
         "from mlvfs_tpu_torch.format import synth\n"
         f"synth.write_mlv({str(tmp_path / 'C.MLV')!r}, width=1808, height=727, frames=2,\n"
         "                camera_model=0x80000331, camera_name='Canon EOS M', audio=True)\n"
@@ -63,13 +65,20 @@ def test_port_imports_no_jax(tmp_path):
         f"{str(tmp_path / 'out_di')!r}, '--device', 'cpu', '--dual-iso', '--mean23', '--cs2x2', "
         "'--bad-pix'])\n"
         "assert rc == 0, rc\n"
-        "from mlvfs_tpu_torch.ops import alias, dualiso_full\n"
+        f"rc = mlvfs_tpu_torch.cli.main(['convert', {str(tmp_path / 'D.MLV')!r}, '-o', "
+        f"{str(tmp_path / 'out_amaze')!r}, '--device', 'cpu', '--dual-iso'])\n"
+        "assert rc == 0, rc\n"
+        "from mlvfs_tpu_torch.ops import alias, amaze_core, amaze_edge, amaze_scans, dualiso_full\n"
         "assert alias.KERNEL_LAUNCHES == 0 and dualiso_full.ALIAS_MAP_MAX == 15000\n"
+        "assert amaze_core.KERNEL_LAUNCHES == amaze_edge.KERNEL_LAUNCHES == 0\n"
+        "assert amaze_scans.KERNEL_LAUNCHES == 0\n"
         "print(sorted(m for m in sys.modules if m.startswith('jax')),\n"
         "      sorted(m for m in sys.modules if m == 'mlvfs_tpu' or m.startswith('mlvfs_tpu.')))\n"
         "print('\\n'.join(opened))\n"
     )
-    env = dict(os.environ, PYTHONPATH=_REPO)
+    # one torch thread: the test run's other workers hold the cores, and an
+    # oversubscribed OpenMP pool makes each op of the conversions ~100x slower
+    env = dict(os.environ, PYTHONPATH=_REPO, OMP_NUM_THREADS="1")
     proc = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path), env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
@@ -83,6 +92,7 @@ def test_port_imports_no_jax(tmp_path):
     assert not [p for p in opened if p.startswith(ref)]
     assert len([n for n in os.listdir(tmp_path / "out") if n.endswith(".dng")]) == 2
     assert len([n for n in os.listdir(tmp_path / "out_di") if n.endswith(".dng")]) == 2
+    assert len([n for n in os.listdir(tmp_path / "out_amaze") if n.endswith(".dng")]) == 2
 
 
 def _imports_reference(source: str) -> list:
@@ -124,7 +134,7 @@ def test_cuda_device_without_card_raises(tmp_path):
     assert not os.path.exists(tmp_path / "out" / "C_000000.dng")
 
 
-@pytest.mark.parametrize("field, value", [("dual_iso", 2), ("stripes_batch_cal", True)])
+@pytest.mark.parametrize("field, value", [("stripes_batch_cal", True)])
 def test_unported_flag_raises(field, value, tmp_path):
     cfg = ProcessingConfig(device="cpu", **{field: value})
     with pytest.raises(NotImplementedError, match=field):
@@ -137,11 +147,12 @@ def test_unported_flag_raises(field, value, tmp_path):
 
 @pytest.mark.parametrize("field, value", [
     ("deflicker", 3000), ("fix_bad_pixels", 1), ("chroma_smooth", 3), ("fix_stripes", True),
-    ("fix_pattern_noise", True), ("dual_iso", 1),
+    ("fix_pattern_noise", True), ("dual_iso", 1), ("dual_iso", 2),
 ])
 def test_ported_flag_matches_jax(field, value, tmp_path):
     """The processing flags ported so far convert on the CPU, byte-identical
-    to mlvfs_tpu (this clip is not dual-ISO: the preview passes it through)."""
+    to mlvfs_tpu (this clip is not dual-ISO: the preview and the full
+    reconstruction pass it through)."""
     kernels.check_supported(ProcessingConfig(device="cpu", **{field: value}))
     src = str(tmp_path / "C.MLV")
     synth.write_mlv(src, width=64, height=16, frames=3)
@@ -152,8 +163,7 @@ def test_ported_flag_matches_jax(field, value, tmp_path):
     assert _tree(tmp_path / "port") == _tree(tmp_path / "ref")
 
 
-@pytest.mark.parametrize("flags", [["--dual-iso"], ["--stripes-batch-cal"],
-                                   ["--devices", "4"]])
+@pytest.mark.parametrize("flags", [["--stripes-batch-cal"], ["--devices", "4"]])
 def test_cli_unported_flag_fails_clearly(flags, tmp_path, capsys):
     src = str(tmp_path / "C.MLV")
     synth.write_mlv(src, width=64, height=16, frames=1)
@@ -166,7 +176,7 @@ def test_cli_unported_flag_fails_clearly(flags, tmp_path, capsys):
 
 @pytest.mark.parametrize("flags", [["--cs3x3"], ["--deflicker=3000"], ["--bad-pix"],
                                    ["--fix-pattern-noise"], ["--dual-iso-preview"],
-                                   ["--dual-iso", "--mean23", "--cs3x3"]])
+                                   ["--dual-iso", "--mean23", "--cs3x3"], ["--dual-iso"]])
 def test_cli_ported_flag_matches_jax(flags, tmp_path):
     from mlvfs_tpu import cli as ref_cli
 
