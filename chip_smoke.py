@@ -73,16 +73,23 @@ Phases (any failed check raises, and the script exits non-zero):
      group launches with #10 between them) against its plain twin,
      bit-equal, at 1080p and 1872x1060 with B=16, at 160x224, 320x352,
      300x50 and at 17x18 and 33x46 (narrower than a tile and its aprons),
-     and on Nyquist stripes across a tile edge; #8's and #10's device time
-     in one demosaic at 1080p/B=16 (torch.profiler; each stage group and
-     each pass apart with its bound, every one of them checked to be above
-     0), #8's workspace in planes and
-     GB, the whole call and the twin by CUDA events, and the five passes of
-     one demosaic against their twins;
+     and on Nyquist stripes across a tile edge; #8's and #10's time in one
+     demosaic at 1080p/B=16 (each stage group and each pass apart, by CUDA
+     events over launches of its own on the workspace a demosaic filled,
+     each pass with its bound), #8's workspace in planes and GB, the whole
+     call and the twin by CUDA events, and the five passes of one demosaic
+     against their twins;
   2h. the fused AMaZE kernel (#9, ``MLVFS_AMAZE_PALLAS_MODE=mega``) against
      the plain twin and against split mode (#8 + #10), bit-equal, at 1080p
-     with B=16 and at two-tile, three-tile, odd and smallest sizes; its
-     time at 1080p/B=16 beside split mode's, the twin's and its bound;
+     with B=16, at two-tile, three-tile, odd and smallest sizes, past the
+     dilate ring's width (160x2100) and the refine ring's (96x7300), and on
+     a batch of small frames whose tiles are more than the grid's blocks and
+     no multiple of them; its time at 1080p/B=16 beside split mode's, the
+     twin's and its bound; each of its ten steps' time from its
+     %globaltimer stamps beside split mode's kernels and pad (CUDA events)
+     on the same frames; its block size, blocks an SM, shared memory,
+     workspace, and the registers and spills (ptxas -v) of #9 and of #8's
+     group kernels;
   2i. the frame-level raster-pass entry points (#11: refine_frame,
      dilate_frame on float32 and int32 cells, chroma_frame's two planes in
      one launch) against their twins, bit-equal, on batched 1080p padded
@@ -112,7 +119,9 @@ Phases (any failed check raises, and the script exits non-zero):
      and every DNG must be byte-identical to the port's CPU conversion;
   3e. ``convert CLIP --dual-iso --mean23``: a 1080p dual-ISO 5D Mark III
      clip (32 frames), and a 1872x1060 EOS M clip (20 frames) whose odd
-     frames are single-ISO, with ``--bad-pix --cs2x2 --stripes``. Kernel #7
+     frames are single-ISO, with ``--bad-pix --cs2x2 --stripes``; hdr_check
+     on the first 8 frames of each decides on the card as on the CPU, with
+     the same sums to the bit. Kernel #7
      must run once per batch (each holds a converted frame) and not at all
      under ``--no-alias-map``; converted frames carry x4 levels, the others
      their own. The first 2 DNGs are held against the port's CPU conversion
@@ -148,9 +157,13 @@ flags-on, ``--fix-pattern-noise``, ``--dual-iso-preview``, ``--dual-iso
 torch.profiler (device busy share, device time by kernel).
 ``python3 chip_smoke.py --kernel-times [--package-root DIR]`` times only
 the unpack and chroma calls (phase 2's and 2b's inputs and the flags-on
-frames), by CUDA events and by device time, for the port in DIR (default:
-this checkout), so that another commit's kernels (a parent unpacked by
-``git archive``) are measured by the same code in the same call.
+frames), by CUDA events and by device time, and the AMaZE demosaic in mega
+and split mode (phase 2h's 1080p mosaics, CUDA events; split mode's
+kernels as phases 2g and 2h time them; #9's steps where the port stamps
+them), for the port in DIR (default: this checkout), so
+that another commit's kernels (a parent unpacked by ``git archive``) are
+measured by the same code in the same call. ``python3 chip_smoke.py
+--mega`` builds the kernels and runs phase 2h alone.
 
 Without a CUDA card it exits non-zero and prints no result. The line before the last is a JSON summary of the kernels; the last
 line of stdout is ``{"ok": true, "device": {"platform": "gpu", "kind": ...,
@@ -419,9 +432,11 @@ def chroma_vs_plain(card: str):
 def kernel_times(card: str):
     """``--kernel-times``: the unpack and chroma calls at 1080p/B=16 (phase
     2's and 2b's timing inputs, and the flags-on frames for cs3x3), each by
-    CUDA events around the call and by its device time, for the package
-    found first on sys.path (``--package-root DIR`` times another checkout of
-    the port, such as a parent commit, with this script's code)."""
+    CUDA events around the call and by its device time, and the AMaZE
+    demosaic in mega mode (#9) and split mode (#8 + #10) on phase 2h's
+    1080p/B=16 mosaics by CUDA events, for the package found first on
+    sys.path (``--package-root DIR`` times another checkout of the port,
+    such as a parent commit, with this script's code)."""
     import numpy as np
     import torch
 
@@ -452,6 +467,40 @@ def kernel_times(card: str):
                   f"(runs {runs[0]:.4f}/{runs[1]:.4f}), device {device_ms:.4f} ms (runs {device_runs}); "
                   f"bound {bound_ms:.4f} ms ({bound_by}), the device time at "
                   f"{100 * bound_ms / device_ms:.1f} % of it [{card}]")
+    amaze_times(card)
+
+
+def amaze_times(card: str):
+    """The AMaZE demosaic at 1080p/B=16 on phase 2h's mosaics: mega mode
+    (#9) and split mode (#8 + #10) by CUDA events, in turns, and #9's steps
+    where the package stamps them."""
+    import torch
+
+    from mlvfs_tpu_torch.ops import amaze_core
+
+    raw = amaze_mosaics(torch.Generator(device="cuda").manual_seed(2031), 16, 1080, 1920)
+
+    def run(mode):
+        with amaze_mode(mode):
+            return amaze_core.amaze_demosaic(raw)
+
+    mega_a, split_a = _median_ms(lambda: run("mega"), reps=5), _median_ms(lambda: run("split"), reps=5)
+    split_b, mega_b = _median_ms(lambda: run("split"), reps=5), _median_ms(lambda: run("mega"), reps=5)
+    print(f"kernel times: AMaZE 1920x1080 B=16, mega mode #9 {min(mega_a, mega_b):.4f} ms (runs "
+          f"{mega_a:.4f}/{mega_b:.4f}), split mode #8 + #10 {min(split_a, split_b):.4f} ms (runs "
+          f"{split_a:.4f}/{split_b:.4f}) [{card}]")
+    # split mode's kernels by the yardstick of phases 2g and 2h, so that
+    # --package-root times a parent's by the same one
+    k = split_kernel_ms(raw)
+    groups = sum(k[name] for name in STAGE_KERNELS)
+    print(f"kernel times: split mode's kernels by CUDA events over launches on a filled workspace: #8's "
+          f"groups {groups:.4f} ms (" + ", ".join(f"{name} {k[name]:.4f}" for name in STAGE_KERNELS)
+          + f"), #10's passes {k['refine_kernel'] + k['dilate_kernel'] + k['chroma_kernel']:.4f} ms (refine "
+          f"{k['refine_kernel']:.4f}, dilate {k['dilate_kernel']:.4f}, chroma {k['chroma_kernel']:.4f}) [{card}]")
+    if hasattr(amaze_core, "amaze_demosaic_mega_steps"):
+        steps = mega_steps_ms(raw)
+        print("kernel times: #9's steps (ms): " + ", ".join(f"{k} {v:.4f}" for k, v in steps.items())
+              + f" [{card}]")
 
 
 def blur_ops(img) -> int:
@@ -1013,6 +1062,59 @@ def amaze_mode(mode: str):
             os.environ[amaze_core.MODE_ENV] = old
 
 
+def split_kernel_ms(raw, n=10):
+    """Split mode's kernels in one demosaic of these (B, H, W) mosaics:
+    {#8's k_group1 .. k_output, #10's refine_kernel (its two launches),
+    dilate_kernel, chroma_kernel (its two)}, each timed by CUDA events over
+    n back-to-back launches on the workspace a split demosaic filled, the
+    median of three runs. A launch reads only planes an earlier step wrote,
+    so it rewrites the same values; no profiler session is involved."""
+    import torch
+
+    from mlvfs_tpu_torch import _build
+    from mlvfs_tpu_torch.ops import amaze_core, amaze_scans
+
+    captured = {}
+    make = amaze_core._outputs_and_workspace
+
+    def capture(r, planes):
+        captured["outs"], captured["ws"] = make(r, planes)
+        return captured["outs"], captured["ws"]
+
+    amaze_core._outputs_and_workspace = capture
+    try:
+        with amaze_mode("split"):
+            amaze_core.amaze_demosaic(raw)
+    finally:
+        amaze_core._outputs_and_workspace = make
+    outs, ws = captured["outs"], captured["ws"]
+    b, hp, wp = ws.shape[1:]
+    plane = {name: ws[i] for i, name in enumerate(amaze_core.SPLIT_PLANES)}
+    for name in amaze_core.INT_PLANES:
+        plane[name] = plane[name].view(torch.int32)
+    lib = _build.library("amaze")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def stage(k):
+        def launch():
+            check(lib.mlvfs_amaze_stage(k, ws.data_ptr(), *(o.data_ptr() for o in outs), b, hp, wp, stream) == 0,
+                  f"#8's stage group {k} launched")
+        return launch
+
+    launches = {
+        **{name: [stage(k)] for k, name in enumerate(STAGE_KERNELS, 1)},
+        "refine_kernel": [lambda: amaze_scans.refine(plane["hvwt1"], out=plane["hvwt"]),
+                          lambda: amaze_scans.refine(plane["pmwt0"], out=plane["pmwt"])],
+        "dilate_kernel": [lambda: amaze_scans.dilate(plane["nyq0"], out=plane["nyq"])],
+        "chroma_kernel": [lambda: amaze_scans.chroma(plane["d0"], 1, out=plane["d0s"]),
+                          lambda: amaze_scans.chroma(plane["d1"], 0, out=plane["d1s"])],
+    }
+    out = {}
+    for name, fns in launches.items():
+        out[name] = sum(_median_ms(lambda: [fn() for _ in range(n)], reps=3, warmup=1) / n for fn in fns)
+    return out
+
+
 def nyquist_cells(raw) -> int:
     """The Nyquist cells (R/B sites of the dilated Nyquist map) of the
     demosaic of these (B, H, W) mosaics on the card, read from the split
@@ -1121,12 +1223,13 @@ def amaze_vs_plain(card: str):
     def plain_stages():
         return amaze_core._stencil_stages_plain(amaze_core.pad_mosaic(raw), pass_kernels)
 
-    stage_ms = _profiled_ms(run, STAGE_KERNELS)
-    per_group = {name: _profiled_ms(run, (name,)) for name in STAGE_KERNELS}
-    passes_ms = _profiled_ms(run, PASS_KERNELS)
-    per_pass = {name: _profiled_ms(run, (name,)) for name in PASS_KERNELS}
-    for name, ms in [("#8", stage_ms), *per_group.items(), ("#10", passes_ms), *per_pass.items()]:
-        check(ms > 0, f"the profiler saw {name}'s kernels in a demosaic ({ms} ms)")
+    # each kernel by CUDA events over launches of its own: torch.profiler's
+    # readings of these have come out at half a kernel's time or without a
+    # launch at times on the H100
+    kernel_ms = split_kernel_ms(raw)
+    per_group = {name: kernel_ms[name] for name in STAGE_KERNELS}
+    per_pass = {name: kernel_ms[name] for name in PASS_KERNELS}
+    stage_ms, passes_ms = sum(per_group.values()), sum(per_pass.values())
     whole_a = _median_ms(run, reps=5)
     plain_a = _median_ms(plain_stages, reps=3, warmup=1)
     twin_a = _median_ms(lambda: amaze_core.amaze_demosaic_plain(raw), reps=3, warmup=1)
@@ -1138,13 +1241,13 @@ def amaze_vs_plain(card: str):
     amaze_bound = demosaic_bound(b, h, w, n_nyq, with_passes=False)
     t_bytes = b * h * w * 4 * 4 / HBM_BYTES_PER_S
     print(f"AMaZE demosaic {w}x{h} B={b}: stencil stages #8 {stage_ms:.4f} ms, raster passes #10 "
-          f"{passes_ms:.4f} ms (device time of their kernels, torch.profiler), the whole call "
+          f"{passes_ms:.4f} ms (their kernels by CUDA events, launched on their own), the whole call "
           f"{whole_ms:.4f} ms (runs {whole_a:.4f}/{whole_b:.4f}); plain twin of the stages (with the "
           f"#10 kernels) {plain_ms:.4f} ms (runs {plain_a:.4f}/{plain_b:.4f}), the whole plain twin "
           f"{twin_ms:.4f} ms (runs {twin_a:.4f}/{twin_b:.4f}); #8 bound {amaze_bound[0]:.4f} ms ({amaze_bound[1]}; {n_nyq} "
           f"Nyquist cells; bytes alone {t_bytes * 1e3:.4f} ms), #8 at "
           f"{100 * amaze_bound[0] / stage_ms:.1f} % of it [{card}]")
-    print("#8's stage groups inside that demosaic (torch.profiler): "
+    print("#8's stage groups inside that demosaic (CUDA events): "
           + ", ".join(f"{name} {ms:.4f} ms" for name, ms in per_group.items())
           + f" (one launch each), {stage_ms:.4f} ms in all [{card}]")
     plane_bytes = b * hp * wp * 4
@@ -1152,7 +1255,7 @@ def amaze_vs_plain(card: str):
           f"{len(amaze_core.SPLIT_PLANES) * plane_bytes / 1e9:.4f} GB (#9's: {len(amaze_core.PLANES)} planes, "
           f"{len(amaze_core.PLANES) * plane_bytes / 1e9:.4f} GB)")
     pass_bounds = raster_pass_bounds(n_padded)
-    print("raster passes #10 inside that demosaic (torch.profiler): "
+    print("raster passes #10 inside that demosaic (CUDA events): "
           + ", ".join(f"{name} {ms:.4f} ms (bound {pass_bounds[name][0]:.4f} ms, {pass_bounds[name][1]})"
                       for name, ms in per_pass.items())
           + f" (refine and chroma launch twice, dilate once; each bound for its launches) [{card}]")
@@ -1188,6 +1291,41 @@ def amaze_vs_plain(card: str):
             "amaze_raster_passes": (pass_err, kernel_ms, pplain_ms, *pass_bound)}
 
 
+MEGA_SHAPES = [  # (B, H, W) of phase 2h and their reasons
+    (16, 1080, 1920),  # 1080p at B=16: 34,160 tiles of each group, 144 raster tiles
+    (1, 160, 224),     # two raster tiles
+    (3, 300, 50),      # three raster tiles, a strip narrower than two group tiles
+    (2, 33, 46),       # odd heights, narrower than a tile and its aprons
+    (1, 17, 18),       # the smallest frame
+    (1, 160, 2100),    # 2,132 padded columns: past dilate's ring, its row walk
+    (1, 96, 7300),     # 7,332 padded columns: past refine's ring too, both row walks
+    (270, 40, 64),     # 2,430 group tiles, 270 raster tiles: above the grid and no multiple of it
+]
+
+
+def mega_resources():
+    """{kernel: ptxas's registers, stack and spills} of #9 and #8's group
+    kernels, from their builds (-Xptxas -v)."""
+    from mlvfs_tpu_torch import _build
+
+    out = {}
+    for lib in ("amaze_mega", "amaze"):
+        for mangled, usage in _build.resource_usage(lib).items():
+            for name in ("amaze_mega_kernel", *STAGE_KERNELS):
+                if name in mangled:
+                    out[name] = usage
+    return out
+
+
+def mega_steps_ms(raw, reps=3):
+    """The median over ``reps`` stamped runs of each of #9's steps, in ms."""
+    from mlvfs_tpu_torch.ops import amaze_core
+
+    amaze_core.amaze_demosaic_mega_steps(raw)
+    runs = [amaze_core.amaze_demosaic_mega_steps(raw)[1] for _ in range(reps)]
+    return {k: sorted(r[k] for r in runs)[reps // 2] for k in amaze_core.MEGA_STEPS}
+
+
 def amaze_mega_vs_plain(card: str):
     """Phase 2h. Returns (max_abs_err, kernel_ms, plain_ms, bound_ms,
     bound_by) of kernel #9 at 1080p/B=16."""
@@ -1196,8 +1334,14 @@ def amaze_mega_vs_plain(card: str):
     from mlvfs_tpu_torch.ops import amaze_core
 
     gen = torch.Generator(device="cuda").manual_seed(2031)
+    b, h, w = MEGA_SHAPES[-1]
+    plan = amaze_core.mega_plan(h, w)
+    grid, hp = plan["blocks_per_sm"] * plan["sms"], h + 2 * amaze_core.PAD
+    items = (b * -(-hp // 32) * -(-(w + 2 * amaze_core.PAD) // 32), b * amaze_core.n_tiles(hp))
+    check(all(n > grid and n % grid for n in items),
+          f"AMaZE #9 at {h}x{w} B={b}: group and pass items {items} above the grid's {grid} blocks, no multiple")
     max_err = 0.0
-    for b, h, w in [(16, 1080, 1920), (1, 160, 224), (3, 300, 50), (2, 33, 46), (1, 17, 18)]:
+    for b, h, w in MEGA_SHAPES:
         raw = amaze_mosaics(gen, b, h, w)
         with amaze_mode("mega"):
             got = amaze_core.amaze_demosaic(raw)
@@ -1212,16 +1356,19 @@ def amaze_mega_vs_plain(card: str):
             check(torch.equal(g, v) and torch.equal(g, sp),
                   f"AMaZE #9 {name} == plain and == split mode at {h}x{w} B={b} (max err {err})")
         del got, split, want
-    print(f"AMaZE kernel #9 vs plain and vs split mode (#8 + #10): bit-equal in all cases, "
-          f"max_abs_err {max_err}")
+    walks = {(h, w): amaze_core.mega_plan(h, w) for _, h, w in MEGA_SHAPES[-3:-1]}
+    print(f"AMaZE kernel #9 vs plain and vs split mode (#8 + #10): "
+          f"bit-equal at {len(MEGA_SHAPES)} shapes, max_abs_err {max_err}; walks past the rings: "
+          + ", ".join(f"{w} columns refine {'ring' if p['refine_ring'] else 'row walk'}, dilate "
+                      f"{'ring' if p['dilate_ring'] else 'row walk'}" for (h, w), p in walks.items()))
 
     b, h, w = 16, 1080, 1920
+    hp, wp = h + 2 * amaze_core.PAD, w + 2 * amaze_core.PAD
     raw = amaze_mosaics(gen, b, h, w)
     n_nyq = nyquist_cells(raw)
 
     def mega():
-        with amaze_mode("mega"):
-            return amaze_core.amaze_demosaic(raw)
+        return amaze_core._amaze_demosaic_mega_cuda(raw)
 
     def split():
         with amaze_mode("split"):
@@ -1236,15 +1383,43 @@ def amaze_mega_vs_plain(card: str):
     plain_b = _median_ms(plain, reps=1, warmup=0)
     mega_ms, split_ms, plain_ms = min(mega_a, mega_b), min(split_a, split_b), min(plain_a, plain_b)
     bound_ms, bound_by = demosaic_bound(b, h, w, n_nyq, with_passes=True)
+    plan = amaze_core.mega_plan(h, w)
     # the call is one launch and the allocation of its outputs and workspace
     # (torch's caching allocator), so the CUDA events time the kernel
     print(f"AMaZE demosaic #9 {w}x{h} B={b}: the whole call {mega_ms:.4f} ms (runs {mega_a:.4f}/"
-          f"{mega_b:.4f}), split mode "
-          f"#8 + #10 {split_ms:.4f} ms (runs {split_a:.4f}/{split_b:.4f}), plain twin {plain_ms:.4f} ms "
-          f"(runs {plain_a:.4f}/{plain_b:.4f}); bound {bound_ms:.4f} ms ({bound_by}: the stages' and the "
-          f"five passes' operations, {n_nyq} Nyquist cells; bytes alone "
-          f"{b * h * w * 16 / HBM_BYTES_PER_S * 1e3:.4f} ms), #9 at {100 * bound_ms / mega_ms:.1f} % of "
-          f"it [{card}]")
+          f"{mega_b:.4f}; blocks of {plan['threads']} threads), split mode #8 + #10 {split_ms:.4f} ms "
+          f"(runs {split_a:.4f}/{split_b:.4f}), plain twin {plain_ms:.4f} ms (runs {plain_a:.4f}/{plain_b:.4f}); bound "
+          f"{bound_ms:.4f} ms ({bound_by}: the stages' and the five passes' operations, {n_nyq} Nyquist "
+          f"cells; bytes alone {b * h * w * 16 / HBM_BYTES_PER_S * 1e3:.4f} ms), #9 at "
+          f"{100 * bound_ms / mega_ms:.1f} % of it [{card}]")
+
+    # where the time goes inside the launch (its %globaltimer stamps), beside
+    # split mode's kernels and its pad on the same frames (CUDA events)
+    steps = mega_steps_ms(raw)
+    split_kernels = split_kernel_ms(raw)
+    pad_ms = _median_ms(lambda: amaze_core.pad_mosaic(raw), reps=5)
+    k = split_kernels
+    split_of = {"pad": ("pad_mosaic", pad_ms), "group 1": ("k_group1", k["k_group1"]),
+                "dilate nyq0": ("dilate_kernel", k["dilate_kernel"]), "group 2": ("k_group2", k["k_group2"]),
+                "refine hvwt1": ("refine_kernel, half its two launches", k["refine_kernel"] / 2),
+                "group 3": ("k_group3", k["k_group3"]),
+                "refine pmwt0": ("refine_kernel, half its two launches", k["refine_kernel"] / 2),
+                "group 4": ("k_group4", k["k_group4"]),
+                "chroma d0 d1": ("chroma_kernel, its two launches", k["chroma_kernel"]),
+                "group 5": ("k_output", k["k_output"])}
+    for step in amaze_core.MEGA_STEPS:
+        what, ms = split_of[step]
+        print(f"#9 step {step}: {steps[step]:.4f} ms; split mode {ms:.4f} ms ({what}) [{card}]")
+    print(f"#9 steps summed: {sum(steps.values()):.4f} ms (each step up to the grid sync after it); split mode's "
+          f"kernels summed {sum(split_kernels.values()):.4f} ms plus its pad [{card}]")
+    plane_bytes = b * hp * wp * 4
+    print(f"#9's launch: blocks of {plan['threads']} threads, {plan['blocks_per_sm']} an SM on "
+          f"{plan['sms']} SMs, {plan['smem_bytes']} B of dynamic shared memory; workspace {len(amaze_core.SPLIT_PLANES)} float32 planes of "
+          f"{b}x{hp}x{wp}, {len(amaze_core.SPLIT_PLANES) * plane_bytes / 1e9:.4f} GB (36 planes, "
+          f"{36 * plane_bytes / 1e9:.4f} GB, before)")
+    for name, usage in mega_resources().items():
+        print(f"registers {name}: {usage.get('registers')} a thread, stack {usage.get('stack')} B, spill "
+              f"stores {usage.get('spill_stores')} B, spill loads {usage.get('spill_loads')} B (ptxas -v)")
     return max_err, mega_ms, plain_ms, bound_ms, bound_by
 
 
@@ -1696,6 +1871,8 @@ def dual_iso_full_path(work, card, device="cuda", frames=32, size=(1920, 1080),
     clips = {}
     for tag, (w, h), n, model, name, odd_plain, extra, flags in cases:
         data = dual_iso_frames(n, w, h, odd_plain, seed=80)
+        if interp == "mean23":
+            hdr_check_on_card(tag, data[:8], ri_black, ri_white, card)
         clip, out, ref_out = dif_paths(work, interp, model)
         clips[tag] = clip
         synth_clip(clip, n, w, h, model, name, frame_data=data, dual_iso=3)
@@ -1761,6 +1938,24 @@ def dual_iso_full_path(work, card, device="cuda", frames=32, size=(1920, 1080),
     print(f"convert 5D3 {size[0]}x{size[1]} {' '.join(DUAL_ISO_FULL)} --no-alias-map, {frames} frames: "
           f"{secs:.3f} s; launches {launches} [{card}]")
     return total
+
+
+def hdr_check_on_card(tag, frames, black, white, card):
+    """hdr_check's decisions and exact sums on the card equal the CPU's on a
+    clip's frames (uint16, (n, h, w))."""
+    import torch
+
+    from mlvfs_tpu_torch.ops import dualiso_full
+
+    t = torch.from_numpy(frames.view("int16"))
+    got = dualiso_full.hdr_check_batch(t.cuda(), black, white).cpu()
+    want = dualiso_full.hdr_check_batch(t, black, white)
+    sums = dualiso_full.hdr_check_sums(dualiso_full.hdr_check_terms(t.cuda(), black, white)[0]).cpu()
+    check(torch.equal(got, want) and torch.equal(sums, dualiso_full.hdr_check_sums(
+        dualiso_full.hdr_check_terms(t, black, white)[0])),
+          f"dual-ISO full {tag}: hdr_check on the card decides as on the cpu, with the same sums")
+    print(f"hdr_check {tag}, {len(frames)} frames: {int(got.sum())} interlaced on the card and on the cpu, "
+          f"sums equal to the bit [{card}]")
 
 
 def amaze_mega_path(work, card, device="cuda", batch_size=16, n_ref=2):
@@ -2091,6 +2286,8 @@ def main() -> int:
                     help="per-layer times and N-frame converts instead of the smoke test")
     ap.add_argument("--kernel-times", action="store_true",
                     help="only the unpack and chroma calls' times (phases 2 and 2b's inputs)")
+    ap.add_argument("--mega", action="store_true",
+                    help="only phase 2h: the fused AMaZE kernel #9 against the twin and split mode")
     ap.add_argument("--package-root", default=ROOT, metavar="DIR",
                     help="the checkout whose mlvfs_tpu_torch is measured (default: this one)")
     args = ap.parse_args()
@@ -2112,6 +2309,11 @@ def main() -> int:
         _build.library("unpack")
         _build.library("chroma")
         kernel_times(card)
+        check_no_reference("the port ran")
+        return 0
+    if args.mega:
+        _build.build_all()
+        amaze_mega_vs_plain(card)
         check_no_reference("the port ran")
         return 0
     t0 = time.perf_counter()

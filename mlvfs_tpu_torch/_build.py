@@ -31,6 +31,7 @@ BUILD_DIR = os.path.join(_PKG_DIR, "build")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",  # each kernel's registers and spills, kept beside the library
 )
 # Sources whose float arithmetic must round as their plain twins do: nvcc
 # contracts a multiply feeding an add into an FMA unless told not to, and
@@ -192,14 +193,23 @@ _SIGNATURES = {
             ctypes.c_int,
             [
                 ctypes.c_void_p,  # raw float32 (batch, h, w), 0..65535 scale
-                ctypes.c_void_p,  # workspace float32 (N_PLANES, batch, h + 32, w + 32)
+                ctypes.c_void_p,  # workspace float32 (N_SPLIT, batch, h + 32, w + 32), enum SplitSlot
                 *[ctypes.c_void_p] * 3,  # red, green, blue float32 (batch, h, w)
                 ctypes.c_longlong,  # batch
                 ctypes.c_longlong,  # h
                 ctypes.c_longlong,  # w (even)
                 ctypes.c_longlong,  # tiles of the 160/128 grid of the padded height
                 ctypes.c_float,  # float32(1 / 65535)
+                ctypes.c_void_p,  # int64 step stamps on the device, or None
                 ctypes.c_void_p,  # cudaStream_t
+            ],
+        ),
+        "mlvfs_amaze_mega_plan": (
+            ctypes.c_int,
+            [
+                ctypes.c_longlong,  # h
+                ctypes.c_longlong,  # w (even)
+                ctypes.c_void_p,  # int64[6] out, on the host
             ],
         ),
     },
@@ -286,7 +296,53 @@ def _compile(name: str, out: str) -> None:
         raise RuntimeError(
             f"nvcc failed building {name}.cu (rc={proc.returncode}):\n{proc.stdout}{proc.stderr}"
         )
+    with open(tmp + ".ptxas", "w") as f:
+        f.write(proc.stdout + proc.stderr)
+    os.replace(tmp + ".ptxas", _ptxas_path(out))
     os.replace(tmp, out)  # atomic: a concurrent build never loads a partial file
+
+
+def _ptxas_path(lib: str) -> str:
+    return lib[: -len(".so")] + ".ptxas.txt"
+
+
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '(\S+)' for")
+_PTXAS_PROPERTIES = re.compile(r"Function properties for (\S+)")
+_PTXAS_SPILLS = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads")
+_PTXAS_REGS = re.compile(r"Used (\d+) registers")
+
+
+def parse_ptxas(text: str) -> dict:
+    """{mangled kernel name: {"registers", "stack", "spill_stores",
+    "spill_loads"}} from nvcc's ``-Xptxas -v`` report: each entry
+    function's "Used N registers" line, and the stack and spill line that
+    follows its own "Function properties" line (not a callee's)."""
+    found, entry, props = {}, None, None
+    for line in text.splitlines():
+        m = _PTXAS_ENTRY.search(line)
+        if m:
+            entry = m.group(1)
+            found[entry] = {}
+            continue
+        m = _PTXAS_PROPERTIES.search(line)
+        if m:
+            props = m.group(1)
+            continue
+        m = _PTXAS_SPILLS.search(line)
+        if m and props in found:
+            found[props].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                                spill_loads=int(m.group(3)))
+        m = _PTXAS_REGS.search(line)
+        if m and entry is not None:
+            found[entry]["registers"] = int(m.group(1))
+    return found
+
+
+def resource_usage(name: str) -> dict:
+    """:func:`parse_ptxas` of csrc/<name>.cu's build (built on first use)."""
+    library(name)
+    with open(_ptxas_path(library_path(name))) as f:
+        return parse_ptxas(f.read())
 
 
 def build_all() -> None:

@@ -9,20 +9,18 @@
 // values (the reference's indx>>1 arrays) are the site lane's value on both
 // lanes of a 2-pixel cell, summed with the other lane's 0 as the twin sums.
 //
-// The stage bodies are csrc/amaze_stages.cuh (shared with kernel #9,
-// csrc/amaze_mega.cu). One call of mlvfs_amaze_stage(k) is one launch of
-// stage group k:
-//   1. gradients, cardinal interpolation, variance selection and bounding,
-//      hvwt, the Nyquist test -> hcd, vcd, hvwt0, nyq0
+// The group bodies are csrc/amaze_tiles.cuh, over the stage bodies of
+// csrc/amaze_stages.cuh (both shared with kernel #9, csrc/amaze_mega.cu).
+// One call of mlvfs_amaze_stage(k) is one launch of stage group k, a block
+// per (tile column, tile row, frame) of 32 x 32 tiles:
+//   1. gradients, cardinal interpolation, selection, hvwt, the Nyquist test
 //      [then kernel #10 dilates nyq0 -> nyq]
-//   2. area interpolation in the Nyquist regions -> hvwt1
-//      [#10 refines hvwt1 -> hvwt]
+//   2. area interpolation in the Nyquist regions  [#10 refines hvwt1 -> hvwt]
 //   3. populate G, the diagonal gradients, the G curvature, the Nyquist
-//      refinement, diagonal interpolation -> dgrb0b, rbp, rbm, pmwt0
-//      [#10 refines pmwt0 -> pmwt]
-//   4. rbint, G correction, the chroma planes -> rgbgreen2, d0, d1
+//      refinement, diagonal interpolation  [#10 refines pmwt0 -> pmwt]
+//   4. rbint, G correction, the chroma planes
 //      [#10 smooths d0 -> d0s and d1 -> d1s]
-//   5. the output, cropped to (B, h, w) R, G, B on the 0..65535 scale.
+//   5. the output, a thread a pixel.
 //
 // What bounds it on an H100: one plane in and three out, 16 B a padded
 // pixel (0.17 ms for a 1080p batch of 16 at 3.35 TB/s), against some 450
@@ -30,45 +28,8 @@
 // What kept the first form (12 one-pixel-a-thread launches) at 3 % of that
 // was plane traffic: 36 workspace planes, some 35 written and 60 read back
 // through device memory. This form keeps every plane that only one group
-// reads in shared memory:
-//   * a block owns a tile of one frame (tile_h x tile_w: 32 x 32). A group runs its stages one
-//     after another over the tile and an apron each stage's consumers reach
-//     (its reach, below), with a barrier between stages; aprons are
-//     recomputed by the neighbouring tiles. A 2-D tile rather than column
-//     strips walked row by row: a strip's row gives a block's 512 threads
-//     less than one pixel each per stage and a barrier per stage per row,
-//     while a tile gives each barrier 1,000-2,500 pixels;
-//   * the planes that cross a launch (a raster pass reads them, or a later
-//     group) are written by the tile's own pixels only, to a workspace of 18
-//     planes (enum SplitSlot), where the first form had 36;
-//   * dirwts (for gcorr) and rgbgreen (for the merge) are recomputed from
-//     the mosaic where group 4 reads them, and the diagonal gradients in
-//     group 3, instead of being stored: each is a pure function of the
-//     mosaic (and dgrb0b), so the bits are the same;
-//   * a stage whose outputs are per-cell values runs once per cell, at the
-//     cell's R/B site, and writes both lanes.
-// Reach, in padded pixels (y, x), of each stage's region around the tile,
-// from the taps of the stage bodies (csrc/amaze_stages.cuh):
-//   group 1: hvwt (0, 0) per cell reads vcd at its site +-3 rows and hcd at
-//     +-3 columns, cddiffsq at +-2 diagonals, dgintv/dginth +-2, dirwts +-1,
-//     delhvsqsum +-2 -> selection over (3, 3), which reads hcd0/hcdalt at
-//     +-2 columns and vcd0/vcdalt at +-2 rows -> cardinal over (5, 5), which
-//     reads dirwts and the mosaic at +-2 -> gradients over (7, 7) -> the
-//     mosaic loaded over (9, 9);
-//   group 2: area (0, 0) per cell, from the workspace (its 7 x 7 cell sums
-//     run only in Nyquist cells);
-//   group 3: nyq_refine (0, 0) reads D2h/D2v at +-2 and diag (0, 0) per cell
-//     reads delm/delp and dgsqm/dgsqp at +-2 -> curvature and the diagonal
-//     gradients over (2, 2) per cell, curvature reading dgrb0a at +-1 ->
-//     populate over (3, 4) per cell (x even, whole cells) -> the mosaic
-//     over (3, 3);
-//   group 4: gcorr (0, 0) per cell reads rbint at +-2 and dirwts at +-1,
-//     each of the mosaic at +-2 -> rb_interp over (2, 2) per cell, the
-//     mosaic over (3, 3);
-//   group 5: output, one thread a pixel from the workspace.
-// Wrap-around: a tile pixel's frame position is its unwrapped position
-// modulo (hp, wp), so aprons across the frame's edges hold the wrapped rows
-// and columns, exactly as the stencils read them.
+// reads in shared memory, and the planes that cross a launch in a
+// workspace of 18 (enum SplitSlot); see csrc/amaze_tiles.cuh.
 //
 // Built with -fmad=false, so the results are the twin's bit for bit (see
 // csrc/amaze_stages.cuh).
@@ -79,256 +40,44 @@
 
 #include <cuda_runtime.h>
 
-#define AMAZE_STAGE __device__ __forceinline__
-#include "amaze_stages.cuh"
+#include "amaze_tiles.cuh"
 
-using namespace amaze_stages;
+using namespace amaze_tiles;
 
 namespace {
 
-// The tile of group G (1..4): rows and columns (even: tiles hold whole
-// cells), and the threads of a block (also of the output, 5). Group 1's
-// stages do the most work a tile and its shared memory holds 2 blocks an
-// SM, so it takes 16 warps a block; groups 2 and 5 read the workspace with
-// one pass and no barrier. Measured on an H100 against 16 x 64 and 32 x 64
-// tiles and other thread counts (PERF.md).
-__host__ __device__ constexpr int tile_h(int) { return 32; }
-__host__ __device__ constexpr int tile_w(int) { return 32; }
+// The threads of a block of group G (1..5). Group 1's stages do the most
+// work a tile and its shared memory holds 2 blocks an SM, so it takes 16
+// warps a block; groups 2 and 5 read the workspace with one pass and no
+// barrier. Measured on an H100 against other thread counts (PERF.md).
 __host__ __device__ constexpr int threads(int G) { return G == 1 ? 512 : (G == 2 || G == 5 ? 128 : 256); }
 
-struct Reach {
-  int ry, rx;
-};
-constexpr Reach NONE = {-1, -1};
-
-// The shared-memory planes of group G and their reach; NONE for a plane
-// that group reads from the workspace, recomputes or does not touch.
-__host__ __device__ constexpr Reach reach(int G, int P) {
-  if (G == 1) {
-    return P == CFA                                ? Reach{9, 9}
-           : P == DW0 || P == DW1 || P == DHV      ? Reach{7, 7}
-           : P == HCD0 || P == VCD0 || P == HCDA || P == VCDA || P == DGV || P == DGH
-               ? Reach{5, 5}
-           : P == HCD || P == VCD                  ? Reach{3, 3}
-                                                   : NONE;
-  }
-  if (G == 3) {
-    return P == CFA                                          ? Reach{3, 3}
-           : P == DGRB0A                                     ? Reach{3, 4}
-           : P == DELP || P == DELM || P == DGP || P == DGM  ? Reach{2, 2}
-           : P == D2H || P == D2V                            ? Reach{2, 2}
-                                                             : NONE;
-  }
-  if (G == 4) {
-    return P == CFA ? Reach{3, 3} : P == RBINT ? Reach{2, 2} : NONE;
-  }
-  return NONE;
-}
-__host__ __device__ constexpr bool in_shared(int G, int P) { return reach(G, P).ry >= 0; }
-__host__ __device__ constexpr int pitch(int G, int P) { return tile_w(G) + 2 * reach(G, P).rx; }
-__host__ __device__ constexpr int plane_floats(int G, int P) {
-  return in_shared(G, P) ? (tile_h(G) + 2 * reach(G, P).ry) * pitch(G, P) : 0;
-}
-// The offset of plane P in group G's shared memory: the sizes of its
-// shared planes before P, summed without a loop so that it folds into a
-// constant wherever P is one.
-__host__ __device__ constexpr int offset(int G, int P) {
-  static_assert(N_PLANES == 36, "one term per plane");
-#define B(q) (P > q ? plane_floats(G, q) : 0)
-  return B(0) + B(1) + B(2) + B(3) + B(4) + B(5) +
-         B(6) + B(7) + B(8) + B(9) + B(10) + B(11) +
-         B(12) + B(13) + B(14) + B(15) + B(16) + B(17) +
-         B(18) + B(19) + B(20) + B(21) + B(22) + B(23) +
-         B(24) + B(25) + B(26) + B(27) + B(28) + B(29) +
-         B(30) + B(31) + B(32) + B(33) + B(34) + B(35);
-#undef B
-}
-__host__ __device__ constexpr size_t smem_bytes(int G) { return offset(G, N_PLANES) * sizeof(float); }
-
-// The planes group G writes to the workspace.
-__host__ __device__ constexpr bool writes(int G, int P) {
-  return G == 1   ? P == HCD || P == VCD || P == HVWT0 || P == NYQ0
-         : G == 2 ? P == HVWT1
-         : G == 3 ? P == DGRB0B || P == RBP || P == RBM || P == PMWT0
-         : G == 4 ? P == RGBG2 || P == D0 || P == D1
-                  : false;
-}
-
-// Where group G's planes live: shared memory (reach), #8's workspace
-// (split_slot), or, in group 4, the mosaic (dirwts, rgbgreen). own: the
-// pixel is one of the tile's own, the only ones written to the workspace.
+// Group G on the block's tile: (tile column, tile row, frame) = blockIdx.
 template <int G>
-struct Tile {
-  float* ws;
-  long long pl, fo;
-  float* sm;
-  bool own;
-
-  template <class Q>
-  __device__ __forceinline__ float& at_sm(int P, const Q& p, int dy, int dx) const {
-    return sm[offset(G, P) + (p.ty + dy + reach(G, P).ry) * pitch(G, P) + p.tx + dx + reach(G, P).rx];
-  }
-  template <class Q>
-  __device__ __forceinline__ long long at_ws(int P, const Q& p, int dy, int dx) const {
-    return split_slot(P) * pl + fo + (long long)p.wy(dy) * p.wp + p.wx(dx);
-  }
-  template <class Q>
-  __device__ __forceinline__ float cfa(const Q& p, int dy, int dx) const {
-    return at_sm(CFA, p, dy, dx);
-  }
-  template <class Q>
-  __device__ __forceinline__ float v(int P, const Q& p, int dy, int dx) const {
-    if (in_shared(G, P)) {
-      return at_sm(P, p, dy, dx);
-    }
-    if (G == 4 && P == DW0) {
-      return dirwt(cfa(p, dy - 2, dx), cfa(p, dy - 1, dx), cfa(p, dy, dx), cfa(p, dy + 1, dx),
-                   cfa(p, dy + 2, dx));
-    }
-    if (G == 4 && P == DW1) {
-      return dirwt(cfa(p, dy, dx - 2), cfa(p, dy, dx - 1), cfa(p, dy, dx), cfa(p, dy, dx + 1),
-                   cfa(p, dy, dx + 2));
-    }
-    if (G == 4 && P == RGBG) {
-      return rgbgreen(((p.wy(dy) + p.wx(dx)) & 1) == 0, cfa(p, dy, dx), ws[at_ws(DGRB0B, p, dy, dx)]);
-    }
-    return ws[at_ws(P, p, dy, dx)];
-  }
-  template <class Q>
-  __device__ __forceinline__ int iv(int P, const Q& p, int dy, int dx) const {
-    return reinterpret_cast<const int*>(ws)[at_ws(P, p, dy, dx)];
-  }
-  template <class Q>
-  __device__ __forceinline__ void put(int P, const Q& p, float val) const {
-    for (int l = 0; l < p.lanes(); ++l) {
-      const Q q = p.lane(l);
-      if (in_shared(G, P)) {
-        at_sm(P, q, 0, 0) = val;
-      }
-      if (writes(G, P) && own) {
-        ws[at_ws(P, q, 0, 0)] = val;
-      }
-    }
-  }
-  template <class Q>
-  __device__ __forceinline__ void iput(int P, const Q& p, int val) const {
-    for (int l = 0; l < p.lanes(); ++l) {
-      if (writes(G, P) && own) {
-        reinterpret_cast<int*>(ws)[at_ws(P, p.lane(l), 0, 0)] = val;
-      }
-    }
-  }
-};
-
-__device__ __forceinline__ int wrap(int v, int n) {
-  while (v < 0) {
-    v += n;
-  }
-  while (v >= n) {
-    v -= n;
-  }
-  return v;
-}
-
-// Runs f on every pixel (CELLS: every cell, at its R/B site) of the tile at
-// (Y0, X0) and its apron of RY rows and RX columns, the block's threads
-// striding over them.
-template <int RY, int RX, bool CELLS, int G, class F>
-__device__ __forceinline__ void region(const Tile<G>& t, int hp, int wp, F f) {
-  static_assert(!CELLS || RX % 2 == 0, "a cell region holds whole cells");
-  constexpr int TH = tile_h(G), TW = tile_w(G);
-  constexpr int per_row = CELLS ? (TW + 2 * RX) / 2 : TW + 2 * RX;
-  const int Y0 = blockIdx.y * TH, X0 = blockIdx.x * TW;
-  for (int i = threadIdx.x; i < (TH + 2 * RY) * per_row; i += threads(G)) {
-    PxT<Tile<G>> p;
-    p.st = t;
-    p.hp = hp;
-    p.wp = wp;
-    p.ty = i / per_row - RY;
-    p.tx = (CELLS ? 2 * (i % per_row) : i % per_row) - RX;
-    p.y = wrap(Y0 + p.ty, hp);
-    p.x = wrap(X0 + p.tx, wp);
-    if (CELLS) {  // the left lane is even (X0, RX and wp are): step to the site
-      p.x += p.y & 1;
-      p.tx += p.y & 1;
-    }
-    p.pair = CELLS;
-    p.st.own = p.ty >= 0 && p.ty < TH && p.tx >= 0 && p.tx < TW && Y0 + p.ty < hp && X0 + p.tx < wp;
-    f(p);
-  }
-}
-
-template <int G>
-__device__ __forceinline__ Tile<G> tile(float* ws, int B, int hp, int wp, float* sm) {
-  const long long fs = (long long)hp * wp;
-  return Tile<G>{ws, B * fs, blockIdx.z * fs, sm, false};
-}
-
-template <int G>
-using TPx = PxT<Tile<G>>;
-
-template <int G>
-__device__ __forceinline__ void load_cfa(const TPx<G>& p) {
-  p.put(CFA, p.st.ws[p.st.at_ws(CFA, p, 0, 0)]);
+__device__ __forceinline__ void block_tile(float* ws, int B, int hp, int wp) {
+  extern __shared__ float sm[];
+  group<G, threads(G)>(block_team<threads(G)>(), ws, B, hp, wp, blockIdx.z, blockIdx.y * TILE_H,
+                       blockIdx.x * TILE_W, sm);
 }
 
 __global__ void __launch_bounds__(threads(1)) k_group1(float* ws, int B, int hp, int wp) {
-  extern __shared__ float sm[];
-  const Tile<1> t = tile<1>(ws, B, hp, wp, sm);
-  region<9, 9, false>(t, hp, wp, [](const TPx<1>& p) { load_cfa(p); });
-  __syncthreads();
-  region<7, 7, false>(t, hp, wp, [](const TPx<1>& p) { gradients_px(p); });
-  __syncthreads();
-  region<5, 5, false>(t, hp, wp, [](const TPx<1>& p) { cardinal(p); });
-  __syncthreads();
-  region<3, 3, false>(t, hp, wp, [](const TPx<1>& p) { selection(p); });
-  __syncthreads();
-  region<0, 0, true>(t, hp, wp, [](const TPx<1>& p) { hvwt(p); });
+  block_tile<1>(ws, B, hp, wp);
 }
-
 __global__ void __launch_bounds__(threads(2)) k_group2(float* ws, int B, int hp, int wp) {
-  region<0, 0, true>(tile<2>(ws, B, hp, wp, nullptr), hp, wp, [](const TPx<2>& p) { area(p); });
+  block_tile<2>(ws, B, hp, wp);
 }
-
 __global__ void __launch_bounds__(threads(3)) k_group3(float* ws, int B, int hp, int wp) {
-  extern __shared__ float sm[];
-  const Tile<3> t = tile<3>(ws, B, hp, wp, sm);
-  region<3, 3, false>(t, hp, wp, [](const TPx<3>& p) { load_cfa(p); });
-  __syncthreads();
-  region<3, 4, true>(t, hp, wp, [](const TPx<3>& p) { populate(p); });
-  region<2, 2, true>(t, hp, wp, [](const TPx<3>& p) { gradients_cell(p); });
-  __syncthreads();
-  region<2, 2, true>(t, hp, wp, [](const TPx<3>& p) { curvature(p); });
-  __syncthreads();
-  region<0, 0, false>(t, hp, wp, [](const TPx<3>& p) { nyq_refine(p); });
-  region<0, 0, true>(t, hp, wp, [](const TPx<3>& p) { diag(p); });
+  block_tile<3>(ws, B, hp, wp);
 }
-
 __global__ void __launch_bounds__(threads(4)) k_group4(float* ws, int B, int hp, int wp) {
-  extern __shared__ float sm[];
-  const Tile<4> t = tile<4>(ws, B, hp, wp, sm);
-  region<3, 3, false>(t, hp, wp, [](const TPx<4>& p) { load_cfa(p); });
-  __syncthreads();
-  region<2, 2, true>(t, hp, wp, [](const TPx<4>& p) { rb_interp(p); });
-  __syncthreads();
-  region<0, 0, true>(t, hp, wp, [](const TPx<4>& p) { gcorr(p); });
+  block_tile<4>(ws, B, hp, wp);
 }
 
 __global__ void __launch_bounds__(threads(5))
     k_output(float* ws, int B, int hp, int wp, float* red, float* grn, float* blu) {
   const long long i = (long long)blockIdx.x * threads(5) + threadIdx.x;
-  const int h = hp - 2 * PAD, w = wp - 2 * PAD;
-  const long long fs = (long long)h * w;
-  if (i < B * fs) {
-    TPx<5> p;
-    p.st = Tile<5>{ws, (long long)B * hp * wp, (i / fs) * hp * wp, nullptr, false};
-    p.hp = hp;
-    p.wp = wp;
-    p.y = (int)((i % fs) / w) + PAD;
-    p.x = (int)(i % w) + PAD;
-    p.ty = p.tx = 0;
-    p.pair = false;
-    output_at(p, i, red, grn, blu);
+  if (i < (long long)B * (hp - 2 * PAD) * (wp - 2 * PAD)) {
+    output_px(ws, B, hp, wp, i, red, grn, blu);
   }
 }
 
@@ -342,7 +91,7 @@ cudaError_t launch(K kernel, int B, int hp, int wp, float* ws, cudaStream_t st) 
       return e;
     }
   }
-  const dim3 grid((wp + tile_w(G) - 1) / tile_w(G), (hp + tile_h(G) - 1) / tile_h(G), B);
+  const dim3 grid(tiles_x(wp), tiles_y(hp), B);
   kernel<<<grid, threads(G), smem, st>>>(ws, B, hp, wp);
   return cudaGetLastError();
 }

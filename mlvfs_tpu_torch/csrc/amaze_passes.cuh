@@ -29,18 +29,18 @@
 //   interpolation from rows r-1 and r-3 above (0 above the tile's top) and
 //   r+1, r+3 below; the other rows keep their values.
 //
-// Two walks over a tile's rows, each run by one block for one (frame,
-// tile), with one __syncthreads() a row and the updated rows above in
+// Two walks over a tile's rows, each run by one team of threads for one
+// (frame, tile), with one barrier a row and the updated rows above in
 // shared memory:
-//   * refine_tile / dilate_tile (kernel #9; #10 and #11 on planes too wide
-//     for the rings, refine past about 7,260 padded columns, dilate past
-//     2,049): each row step reads its source rows from device
-//     memory, so every step waits out a load's latency. Dilate's chain
-//     within a row is composed by one warp (each lane a run of about wp/64
-//     cells, a shuffle scan over the lanes, each lane walking its run again
-//     from the value entering it), a second __syncthreads() a row;
-//   * refine_ring / dilate_ring (kernels #10 and #11): the source rows a
-//     tile needs stream through a ring of rows in shared memory by cp.async
+//   * refine_tile / dilate_tile (planes too wide for the rings: refine past
+//     about 7,260 padded columns, dilate past 2,049): each row step reads
+//     its source rows from device memory, so every step waits out a load's
+//     latency. Dilate's chain within a row is composed by one warp (each
+//     lane a run of about wp/64 cells, a shuffle scan over the lanes, each
+//     lane walking its run again from the value entering it), a second
+//     barrier a row;
+//   * refine_ring / dilate_ring: the source rows a tile needs stream
+//     through a ring of rows in shared memory by cp.async
 //     (16 B a copy where the plane's rows are 16-B aligned, else 8 or 4),
 //     four rows ahead of the rows a step reads, so a step reads only shared
 //     memory. Dilate holds rows as bits, 32 cells a word (each source row
@@ -58,13 +58,20 @@
 // Both refine walks share the cell's arithmetic (refine_value); dilate_ring
 // computes dilate_tile's transfer functions bit-sliced, for 0/1 cells
 // (tests/test_torch_kernel_models.py holds it to every tap pattern).
-// chroma_cell is one cell and chroma_tile a staged block of cells (#10 and
-// #11), both over chroma_value: the rows a pass updates read only rows of
-// the other parity, which it never changes, so there is no chain.
+// chroma_tile is a staged block of cells, over chroma_value: the rows a
+// pass updates read only rows of the other parity, which it never changes,
+// so there is no chain.
 //
-// The pointers are plain (no __restrict__): in kernel #9 a pass reads a
-// plane written earlier in the same launch, which the read-only data path
-// would not see.
+// Each walk is run by a team of NT threads (csrc/team.cuh: in kernels #10
+// and #11 the block of THREADS, 256; kernel #9 picks its own). The
+// pointers are plain (no __restrict__): in kernel #9 a pass reads a plane
+// written by other blocks earlier in the same launch, before a grid sync.
+// Its plain loads and its copies to shared memory (cp.async, .cg at 16 B
+// and .ca, which may allocate in L1, at 8 or 4) are weak reads in the PTX
+// memory model, which the sync's gpu-scope release and acquire order after
+// those writes, whatever an SM's L1 held before; only the non-coherent
+// read-only path (ld.global.nc, __ldg) is outside that order, so
+// chroma_tile takes it only for a plane not written in the same launch.
 //
 // Compile with -fmad=false: the float operations are those of the twins,
 // one rounding each, in their order, with a product fused into a sum
@@ -77,6 +84,7 @@
 #include <cuda_runtime.h>
 
 #include "cp_async.cuh"
+#include "team.cuh"
 
 namespace amaze_passes {
 
@@ -99,8 +107,8 @@ __device__ __forceinline__ bool kept(int r, int t, int T) {
   return (r >= APRON || t == 0) && (r < APRON + STEP || t == T - 1);
 }
 
-// Shared memory the row walks of kernel #9 need: refine two rows of wp
-// floats, dilate three rows of wp ints and wp/2 transfer functions.
+// Shared memory of the row walks: refine two rows of wp floats, dilate
+// three rows of wp ints and wp/2 transfer functions.
 inline size_t refine_smem(long long wp) { return 2 * wp * sizeof(float); }
 inline size_t dilate_smem(long long wp) { return 3 * wp * sizeof(int) + wp / 2; }
 
@@ -115,12 +123,14 @@ __device__ __forceinline__ float refine_value(float old, float pm, float pp, flo
 
 // The refinement of tile t of one frame's (hp, wp) plane f into o; rows:
 // refine_smem(wp) bytes of shared memory.
-__device__ void refine_tile(const float* f, float* o, int hp, int wp, int T, int t, float* rows) {
+template <int NT>
+__device__ void refine_tile(const Team<NT>& team, const float* f, float* o, int hp, int wp, int T, int t,
+                            float* rows) {
   const int y0 = STEP * t, rlast = last_row(t, T, hp), ncell = wp / 2;
-  for (int x = threadIdx.x; x < wp; x += THREADS) {
+  for (int x = team.tid; x < wp; x += NT) {
     rows[x] = f[(long long)y0 * wp + x];  // the carry starts as the tile's first row
   }
-  __syncthreads();
+  team.sync();
   for (int r = 0; r <= rlast; ++r) {
     const float* prev = rows + (r & 1) * wp;
     float* cur = rows + ((r + 1) & 1) * wp;
@@ -128,7 +138,7 @@ __device__ void refine_tile(const float* f, float* o, int hp, int wp, int T, int
     const float* orow = f + (long long)y * wp;
     const float* nrow = f + (long long)yn * wp;
     const bool keep = kept(r, t, T);
-    for (int c = threadIdx.x; c < ncell; c += THREADS) {
+    for (int c = team.tid; c < ncell; c += NT) {
       const int xs = 2 * c + (r & 1);
       const int xm = wrapx(xs - 1, wp), xp = wrapx(xs + 1, wp);
       const float v = refine_value(orow[xs], prev[xm], prev[xp], nrow[xm], nrow[xp]);
@@ -139,7 +149,7 @@ __device__ void refine_tile(const float* f, float* o, int hp, int wp, int T, int
         o[(long long)y * wp + 2 * c + 1] = v;
       }
     }
-    __syncthreads();
+    team.sync();
   }
 }
 
@@ -152,14 +162,16 @@ __device__ __forceinline__ int after(int f, int g) {  // f after g
 
 // The dilation of tile t of one frame's (hp, wp) int32 plane f into o;
 // smem: dilate_smem(wp) bytes of shared memory.
-__device__ void dilate_tile(const int* f, int* o, int hp, int wp, int T, int t, int* smem) {
+template <int NT>
+__device__ void dilate_tile(const Team<NT>& team, const int* f, int* o, int hp, int wp, int T, int t,
+                            int* smem) {
   int* ring = smem;  // three updated rows of wp, then wp/2 transfer functions
   uint8_t* fn = reinterpret_cast<uint8_t*>(smem + 3 * wp);
   const int y0 = STEP * t, rlast = last_row(t, T, hp), ncell = wp / 2;
-  for (int x = threadIdx.x; x < 3 * wp; x += THREADS) {
+  for (int x = team.tid; x < 3 * wp; x += NT) {
     ring[x] = 0;  // the updated rows above the tile are 0
   }
-  __syncthreads();
+  team.sync();
   for (int r = 0; r <= rlast; ++r) {
     const int* r2 = ring + ((r + 1) % 3) * wp;
     const int* r1 = ring + ((r + 2) % 3) * wp;
@@ -168,7 +180,7 @@ __device__ void dilate_tile(const int* f, int* o, int hp, int wp, int T, int t, 
     const int* orow = f + (long long)y * wp;
     const int* d1 = f + (long long)((y + 1) % hp) * wp;
     const int* d2 = f + (long long)((y + 2) % hp) * wp;
-    for (int c = threadIdx.x; c < ncell; c += THREADS) {
+    for (int c = team.tid; c < ncell; c += NT) {
       const int xs = 2 * c + (r & 1);
       const int xm = wrapx(xs - 1, wp), xp = wrapx(xs + 1, wp), xpp = wrapx(xs + 2, wp);
       const int K = r2[xs] + r1[xm] + r1[xp] + orow[xs] + orow[xpp] + d1[xm] + d1[xp] + d2[xs];
@@ -177,9 +189,9 @@ __device__ void dilate_tile(const int* f, int* o, int hp, int wp, int T, int t, 
       const int f1 = K + 1 > 4 ? 1 : (K + 1 < 4 ? 0 : ov);
       fn[c] = (uint8_t)(f0 | (f1 << 1));
     }
-    __syncthreads();
-    if (threadIdx.x < 32) {
-      const int lane = threadIdx.x;
+    team.sync();
+    if (team.tid < 32) {
+      const int lane = team.tid;
       const int run = (ncell + 31) / 32;
       const int c0 = min(lane * run, ncell), c1 = min(c0 + run, ncell);
       int F = IDENTITY;
@@ -203,16 +215,16 @@ __device__ void dilate_tile(const int* f, int* o, int hp, int wp, int T, int t, 
         cur[2 * c + 1] = v;
       }
     }
-    __syncthreads();
+    team.sync();
     if (kept(r, t, T)) {
-      for (int x = threadIdx.x; x < wp; x += THREADS) {
+      for (int x = team.tid; x < wp; x += NT) {
         o[(long long)y * wp + x] = cur[x];
       }
     }
   }
 }
 
-// ------------------------------------------- the ring walks (#10, #11)
+// ------------------------------------------------------- the ring walks
 
 constexpr int REFINE_RING = 6;  // rows r and r+1 read, four in flight
 constexpr int DILATE_RING = 8;  // row r+3 turned to bits, four in flight
@@ -233,7 +245,9 @@ inline bool dilate_ring_fits(long long wp) { return wp / 2 <= 32 * 32; }
 // a ring of REFINE_RING source rows; smem: refine_ring_smem(wp) bytes,
 // 16-B aligned. Tile row k's source is plane row (y0 + k) % hp for
 // k = 0 .. rlast + 1 (row rlast reads the row below it).
-__device__ void refine_ring(const float* f, float* o, int hp, int wp, int T, int t, float* smem) {
+template <int NT>
+__device__ void refine_ring(const Team<NT>& team, const float* f, float* o, int hp, int wp, int T, int t,
+                            float* smem) {
   float* ring = smem;
   float* upd = smem + REFINE_RING * wp;  // the updated rows, r-1 and r in turn
   const int y0 = STEP * t, rlast = last_row(t, T, hp), ncell = wp / 2;
@@ -242,7 +256,7 @@ __device__ void refine_ring(const float* f, float* o, int hp, int wp, int T, int
   auto fetch = [&](int k) {  // one commit group a row, empty past the last
     if (k <= rlast + 1) {
       async_copy::copy_rows(ring + (k % REFINE_RING) * wp, 0, f + (long long)((y0 + k) % hp) * wp,
-                            0, 1, 4 * wp, bytes, threadIdx.x, THREADS);
+                            0, 1, 4 * wp, bytes, team.tid, NT);
     }
     async_copy::commit();
   };
@@ -251,7 +265,7 @@ __device__ void refine_ring(const float* f, float* o, int hp, int wp, int T, int
   }
   for (int r = 0; r <= rlast; ++r) {
     async_copy::wait<REFINE_RING - 3>();  // rows r and r+1 have landed (this thread's copies)
-    __syncthreads();                   // everyone's copies, and row r-1 done everywhere
+    team.sync();                   // everyone's copies, and row r-1 done everywhere
     fetch(r + REFINE_RING - 1);        // into row r-1's slot
     const float* orow = ring + (r % REFINE_RING) * wp;
     const float* nrow = ring + ((r + 1) % REFINE_RING) * wp;
@@ -259,7 +273,7 @@ __device__ void refine_ring(const float* f, float* o, int hp, int wp, int T, int
     float* cur = upd + (r & 1) * wp;
     float* out = o + (long long)(y0 + r) * wp;
     const bool keep = kept(r, t, T);
-    for (int c = threadIdx.x; c < ncell; c += THREADS) {
+    for (int c = team.tid; c < ncell; c += NT) {
       const int xs = 2 * c + (r & 1);
       const int xm = wrapx(xs - 1, wp), xp = wrapx(xs + 1, wp);
       const float v = refine_value(orow[xs], prev[xm], prev[xp], nrow[xm], nrow[xp]);
@@ -299,20 +313,22 @@ __device__ __forceinline__ uint32_t next_word(const uint32_t* X, int w, int ncel
 // by thread w): the neighbour count K of the eight taps bit-sliced, each
 // cell's transfer function as two bits (f(0) in F0, f(1) in F1), the
 // chain within the word composed by doubling over the bits, across the
-// words by a shuffle scan over warp 0's lanes, while warps 1 .. 7 do the
+// words by a shuffle scan over warp 0's lanes, while the other warps do the
 // copies, the rows to bits and the stores. Row r is written out at step
 // r + 1, from its bits. Only for planes with dilate_ring_fits(wp).
-__device__ void dilate_ring(const int* f, int* o, int hp, int wp, int T, int t, int* smem) {
+template <int NT>
+__device__ void dilate_ring(const Team<NT>& team, const int* f, int* o, int hp, int wp, int T, int t,
+                            int* smem) {
   const int ncell = wp / 2, nwords = (ncell + 31) / 32;
   int* ring = smem;
   uint32_t* src = reinterpret_cast<uint32_t*>(ring + DILATE_RING * wp);  // 4 source rows: even, odd cells
   uint32_t* upd = src + 8 * nwords;                                      // updated rows r-2, r-1, r
   const int y0 = STEP * t, rlast = last_row(t, T, hp);
   const int bytes = async_copy::copy_bytes(f, 4ll * wp);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int lane = team.tid & 31, warp = team.tid >> 5;
   // warp 0 does only the chain, with no block-wide step within a row; the
   // other warps (tid >= 0) the copies, the rows to bits and the stores
-  const int helpers = THREADS - 32, tid = threadIdx.x - 32;
+  const int helpers = NT - 32, tid = team.tid - 32;
   auto fetch = [&](int k) {
     if (k <= rlast + 2 && tid >= 0) {
       async_copy::copy_rows(ring + (k % DILATE_RING) * wp, 0, f + (long long)((y0 + k) % hp) * wp,
@@ -350,11 +366,11 @@ __device__ void dilate_ring(const int* f, int* o, int hp, int wp, int T, int t, 
   for (int k = 0; k < DILATE_RING - 1; ++k) {
     fetch(k);
   }
-  for (int i = threadIdx.x; i < 3 * nwords; i += THREADS) {
+  for (int i = team.tid; i < 3 * nwords; i += NT) {
     upd[i] = 0;  // the updated rows above the tile are 0
   }
   async_copy::wait<DILATE_RING - 4>();  // rows 0 .. 2 have landed
-  __syncthreads();
+  team.sync();
   for (int k = 0; k < 3; ++k) {
     to_bits(k);
   }
@@ -362,7 +378,7 @@ __device__ void dilate_ring(const int* f, int* o, int hp, int wp, int T, int t, 
   const uint32_t valid = w + 1 < nwords ? ~0u : (w + 1 == nwords ? ~0u >> (31 - ((ncell - 1) & 31)) : 0u);
   for (int r = 0; r <= rlast; ++r) {
     async_copy::wait<DILATE_RING - 5>();  // row r+3 has landed
-    __syncthreads();
+    team.sync();
     fetch(r + DILATE_RING - 1);  // into row r-1's slot
     to_bits(r + 3);              // into row r-1's bits
     if (r > 0 && kept(r - 1, t, T)) {
@@ -429,7 +445,7 @@ __device__ void dilate_ring(const int* f, int* o, int hp, int wp, int T, int t, 
       cur[w] = (apply(in_fn, 0) ? P1 : P0) & valid;
     }
   }
-  __syncthreads();
+  team.sync();
   if (kept(rlast, t, T)) {
     store_row(upd + (rlast % 3) * nwords, y0 + rlast);
   }
@@ -467,71 +483,46 @@ __device__ __forceinline__ int tile_row(int y, int T) {
   return y - STEP * t;
 }
 
-// Cell i of the (B, hp, wp / 2) cells of the chroma pass over in -> out,
-// updating the rows of parity `parity` (kernel #9: a thread a cell).
-__device__ void chroma_cell(const float* in, float* out, int hp, int wp, int T, int parity,
-                            long long i) {
-  const int ncell = wp / 2;
-  const long long row = i / ncell;
-  const int c = (int)(i % ncell);
-  const int y = (int)(row % hp);
-  const long long fo = (row / hp) * hp * wp;
-  const float* f = in + fo;
-  float* o = out + fo + (long long)y * wp;
-  if ((y & 1) != parity) {
-    o[2 * c] = f[(long long)y * wp + 2 * c];
-    o[2 * c + 1] = f[(long long)y * wp + 2 * c + 1];
-    return;
-  }
-  const int r = tile_row(y, T);
-  const float* um1 = r >= 1 ? f + (long long)(y - 1) * wp : nullptr;
-  const float* um3 = r >= 3 ? f + (long long)(y - 3) * wp : nullptr;
-  const float* d1 = f + (long long)((y + 1) % hp) * wp;
-  const float* d3 = f + (long long)((y + 3) % hp) * wp;
-  const int x = 2 * c + (y & 1);
-  const float v = chroma_value([&](int dx) { return um1 ? um1[wrapx(x + dx, wp)] : 0.0f; },
-                               [&](int dx) { return um3 ? um3[wrapx(x + dx, wp)] : 0.0f; },
-                               [&](int dx) { return d1[wrapx(x + dx, wp)]; },
-                               [&](int dx) { return d3[wrapx(x + dx, wp)]; });
-  o[2 * c] = v;
-  o[2 * c + 1] = v;
-}
-
-// The staged chroma pass (kernels #10 and #11): a block takes CHROMA_ROWS
-// rows and CHROMA_LANES lanes of one frame's plane, copies them with three
-// rows and lanes around (wrapping as the pass does) into shared memory, and
-// computes its cells from there, so each row comes from L2 about once
-// instead of once for each of the four rows that read it. The plane is read
-// through the read-only path (__ldg): kernel #9, which writes the plane in
-// the same launch, keeps chroma_cell.
+// The staged chroma pass: a block takes CHROMA_ROWS rows and CHROMA_LANES
+// lanes of one frame's plane, copies them with three rows and lanes around
+// (wrapping as the pass does) into shared memory, and computes its cells
+// from there, so each row comes from L2 about once instead of once for each
+// of the four rows that read it. The plane is read through the read-only
+// path (__ldg), or with COHERENT (kernel #9, which writes the plane in the
+// same launch) through L2 (__ldcg).
 constexpr int CHROMA_ROWS = 32, CHROMA_LANES = 256, CHROMA_HALO = 3;
 constexpr int CHROMA_W = CHROMA_LANES + 2 * CHROMA_HALO, CHROMA_H = CHROMA_ROWS + 2 * CHROMA_HALO;
 
 // Block (lane block lb, row block rb) of one frame's (hp, wp) plane f into
-// o, updating the rows of parity `parity`; tile: CHROMA_H * CHROMA_W floats
-// of shared memory.
-__device__ void chroma_tile(const float* f, float* o, int hp, int wp, int T, int parity, int rb,
-                            int lb, float* tile) {
+// o, updating the rows of parity `parity`, run by a team of NT threads;
+// tile: CHROMA_H * CHROMA_W floats of shared memory.
+template <bool COHERENT = false, int NT = THREADS>
+__device__ void chroma_tile(const Team<NT>& team, const float* f, float* o, int hp, int wp, int T,
+                            int parity, int rb, int lb, float* tile) {
   const int Y0 = rb * CHROMA_ROWS, X0 = lb * CHROMA_LANES;
   // thread t copies tile column t of every row, and the first threads
-  // the columns past THREADS too; the loads of all rows issue together
-  const int t = threadIdx.x;
-  const bool extra = t < CHROMA_W - THREADS;
+  // the columns past NT too; the loads of all rows issue together
+  const int t = team.tid;
+  const bool first = NT >= CHROMA_W ? t < CHROMA_W : true;
+  const bool extra = t + NT < CHROMA_W;
   const int xa = ((X0 - CHROMA_HALO + t) % wp + wp) % wp;
-  const int xb = ((X0 - CHROMA_HALO + THREADS + t) % wp + wp) % wp;
+  const int xb = ((X0 - CHROMA_HALO + NT + t) % wp + wp) % wp;
+  auto load = [](const float* p) { return COHERENT ? __ldcg(p) : __ldg(p); };
 #pragma unroll
   for (int rr = 0; rr < CHROMA_H; ++rr) {
     const int y = Y0 - CHROMA_HALO + rr;  // rows above 0 are never read: any row will do
     const float* row = f + (long long)(y < 0 ? 0 : (y < hp ? y : y % hp)) * wp;
-    tile[rr * CHROMA_W + t] = __ldg(row + xa);
+    if (first) {
+      tile[rr * CHROMA_W + t] = load(row + xa);
+    }
     if (extra) {
-      tile[rr * CHROMA_W + THREADS + t] = __ldg(row + xb);
+      tile[rr * CHROMA_W + NT + t] = load(row + xb);
     }
   }
-  __syncthreads();
+  team.sync();
   const bool wide = (reinterpret_cast<unsigned long long>(o) & 7) == 0;
   constexpr int CELLS = CHROMA_LANES / 2;
-  for (int i = threadIdx.x; i < CHROMA_ROWS * CELLS; i += THREADS) {
+  for (int i = t; i < CHROMA_ROWS * CELLS; i += NT) {
     const int rr = i / CELLS, cl = i - rr * CELLS;
     const int y = Y0 + rr, c = X0 / 2 + cl;
     if (y >= hp || 2 * c >= wp) {

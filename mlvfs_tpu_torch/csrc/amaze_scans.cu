@@ -18,13 +18,15 @@
 //   * dilate: the same ring, the rows held as bits, 32 cells a thread of
 //     one warp, each row's chain composed over the bits and across the
 //     lanes by a shuffle scan (dilate_ring);
-//   * planes too wide for the rings take #9's row walks: refine
-//     (refine_tile) where refine_ring_smem is above the 227 KB a block may
-//     have, past about 7,260 padded columns; dilate (dilate_tile) where a
-//     row of cells is more than one warp's 32 words, past 2,049 columns;
+//   * planes too wide for the rings take the row walks that read device
+//     memory: refine (refine_tile) where refine_ring_smem is above the
+//     227 KB a block may have, past about 7,260 padded columns; dilate
+//     (dilate_tile) where a row of cells is more than one warp's 32 words,
+//     past 2,049 columns;
 //   * chroma: a block per 32 rows x 256 lanes of one frame's plane, staged
-//     with its three rows and lanes around in shared memory (chroma_tile);
-//     kernel #9 keeps a thread a cell (chroma_cell).
+//     with its three rows and lanes around in shared memory (chroma_tile).
+// Kernel #9 runs the same walks, chosen by the same widths, inside its
+// cooperative launch.
 // The Pallas kernels' lane padding with wrap copies and their 8-tile
 // sublane stacks were TPU layout and have no counterpart here.
 //
@@ -62,9 +64,9 @@ __global__ void __launch_bounds__(THREADS)
   const long long fo = (long long)blockIdx.y * hp * wp;
   float* smem = reinterpret_cast<float*>(dyn_smem);
   if constexpr (RING) {
-    refine_ring(in + fo, out + fo, hp, wp, T, blockIdx.x, smem);
+    refine_ring(block_team<THREADS>(), in + fo, out + fo, hp, wp, T, blockIdx.x, smem);
   } else {
-    refine_tile(in + fo, out + fo, hp, wp, T, blockIdx.x, smem);
+    refine_tile(block_team<THREADS>(), in + fo, out + fo, hp, wp, T, blockIdx.x, smem);
   }
 }
 
@@ -75,9 +77,9 @@ __global__ void __launch_bounds__(THREADS)
   const long long fo = (long long)blockIdx.y * hp * wp;
   int* smem = reinterpret_cast<int*>(dyn_smem);
   if constexpr (RING) {
-    dilate_ring(in + fo, out + fo, hp, wp, T, blockIdx.x, smem);
+    dilate_ring(block_team<THREADS>(), in + fo, out + fo, hp, wp, T, blockIdx.x, smem);
   } else {
-    dilate_tile(in + fo, out + fo, hp, wp, T, blockIdx.x, smem);
+    dilate_tile(block_team<THREADS>(), in + fo, out + fo, hp, wp, T, blockIdx.x, smem);
   }
 }
 
@@ -86,7 +88,7 @@ __global__ void __launch_bounds__(THREADS)
                   int parity, int lanes_blocks) {
   __shared__ __align__(16) float tile[CHROMA_H * CHROMA_W];
   const long long fo = (long long)blockIdx.y * hp * wp;
-  chroma_tile(in + fo, out + fo, hp, wp, T, parity, blockIdx.x / lanes_blocks,
+  chroma_tile(block_team<THREADS>(), in + fo, out + fo, hp, wp, T, parity, blockIdx.x / lanes_blocks,
               blockIdx.x % lanes_blocks, tile);
 }
 
@@ -98,8 +100,8 @@ __global__ void __launch_bounds__(THREADS)
   __shared__ __align__(16) float tile[CHROMA_H * CHROMA_W];
   const long long fo = (long long)blockIdx.y * hp * wp;
   const bool second = blockIdx.z == 1;
-  chroma_tile((second ? in1 : in0) + fo, (second ? out1 : out0) + fo, hp, wp, T, second ? 0 : 1,
-              blockIdx.x / lanes_blocks, blockIdx.x % lanes_blocks, tile);
+  chroma_tile(block_team<THREADS>(), (second ? in1 : in0) + fo, (second ? out1 : out0) + fo, hp, wp, T,
+              second ? 0 : 1, blockIdx.x / lanes_blocks, blockIdx.x % lanes_blocks, tile);
 }
 
 // blocks of the staged chroma pass: (lane blocks, row blocks)

@@ -1,7 +1,6 @@
 // AMaZE's stencil stages as __device__ functions, shared by csrc/amaze.cu
-// (kernel #8: one fused launch per stage group) and csrc/amaze_mega.cu
-// (kernel #9: every stage in one cooperative launch), so both run one copy
-// of the arithmetic.
+// (kernel #8) and csrc/amaze_mega.cu (kernel #9) through the stage groups of
+// csrc/amaze_tiles.cuh, so both run one copy of the arithmetic.
 //
 // The stages compute the frame-wide values of mlvfs_tpu/ops/amaze_core.py:
 // amaze_demosaic (the reference's CPU form, which
@@ -11,14 +10,13 @@
 // lanes of a 2-pixel cell, summed with the other lane's 0 as the twin sums.
 //
 // Each stage is a function of one pixel (struct PxT), templated over where
-// the planes it reads and writes live (its store S):
-//   * Ws: a workspace of float32 planes (N_PLANES, B, hp, wp), one per
-//     value of enum Plane (the order of PLANES in ops/amaze_core.py; nyq0
-//     and nyq hold int32). Kernel #9 runs every stage on it (px_at).
-//   * csrc/amaze.cu's Tile: the block's shared memory for the planes read
-//     only inside one stage group, a smaller workspace (enum SplitSlot, the
-//     order of SPLIT_PLANES in ops/amaze_core.py) for those that cross a
-//     launch, and recomputation from the mosaic for dirwts and rgbgreen.
+// the planes it reads and writes live (its store S: csrc/amaze_tiles.cuh's
+// Tile, which keeps the planes read only inside one stage group in the
+// block's shared memory, those that cross a group in a workspace of 18
+// planes (enum SplitSlot, the order of SPLIT_PLANES in ops/amaze_core.py),
+// and recomputes dirwts and rgbgreen from the mosaic). Enum Plane names
+// every plane a stage reads or writes (the order of PLANES in
+// ops/amaze_core.py; nyq0 and nyq hold int32).
 // In stage order:
 //   1. gradients, cardinal, selection, hvwt -> hvwt0, nyq0
 //      [the Nyquist dilation nyq0 -> nyq, csrc/amaze_passes.cuh]
@@ -50,13 +48,6 @@
 
 #include <cuda_runtime.h>
 
-// How a stage function is declared: csrc/amaze.cu inlines them into its
-// group kernels (where the planes' addresses fold into constants), the one
-// kernel of csrc/amaze_mega.cu calls them.
-#ifndef AMAZE_STAGE
-#define AMAZE_STAGE __device__
-#endif
-
 namespace amaze_stages {
 
 enum Plane {
@@ -67,15 +58,15 @@ enum Plane {
   N_PLANES
 };
 
-// Kernel #8's workspace: the planes that cross one of its launches (or a
-// raster pass between them), S_<plane> holding plane <plane>.
+// The workspace of kernels #8 and #9: the planes that cross a stage group
+// (or a raster pass between them), S_<plane> holding plane <plane>.
 enum SplitSlot {
   S_CFA, S_HCD, S_VCD, S_HVWT0, S_NYQ0, S_NYQ, S_HVWT1, S_HVWT, S_DGRB0B,
   S_RBP, S_RBM, S_PMWT0, S_PMWT, S_RGBG2, S_D0, S_D1, S_D0S, S_D1S,
   N_SPLIT
 };
 
-// The slot of plane P in #8's workspace, -1 for a plane it does not hold.
+// The slot of plane P in the workspace, -1 for a plane it does not hold.
 __host__ __device__ constexpr int split_slot(int P) {
   return P == CFA      ? S_CFA
          : P == HCD    ? S_HCD
@@ -152,7 +143,7 @@ struct PxT {
   S st;
   int hp, wp;
   int y, x;    // the pixel in the padded frame
-  int ty, tx;  // its offset from the tile origin, not wrapped (csrc/amaze.cu's Tile)
+  int ty, tx;  // its offset from the tile origin, not wrapped (csrc/amaze_tiles.cuh's Tile)
   bool pair;   // the stage runs once per cell, at its R/B site: puts write both lanes
 
   __device__ __forceinline__ int wy(int dy) const {
@@ -197,55 +188,6 @@ struct PxT {
   }
 };
 
-// Every plane in a (N_PLANES, B, hp, wp) workspace; fo is the frame's offset
-// in a plane of pl elements.
-struct Ws {
-  float* ws;
-  long long pl, fo;
-
-  template <class Q>
-  __device__ __forceinline__ long long idx(const Q& p, int dy, int dx) const {
-    return fo + (long long)p.wy(dy) * p.wp + p.wx(dx);
-  }
-  template <class Q>
-  __device__ __forceinline__ float v(int P, const Q& p, int dy, int dx) const {
-    return ws[P * pl + idx(p, dy, dx)];
-  }
-  template <class Q>
-  __device__ __forceinline__ int iv(int P, const Q& p, int dy, int dx) const {
-    return reinterpret_cast<const int*>(ws + P * pl)[idx(p, dy, dx)];
-  }
-  template <class Q>
-  __device__ __forceinline__ void put(int P, const Q& p, float val) const {
-    for (int l = 0; l < p.lanes(); ++l) {
-      ws[P * pl + idx(p.lane(l), 0, 0)] = val;
-    }
-  }
-  template <class Q>
-  __device__ __forceinline__ void iput(int P, const Q& p, int val) const {
-    for (int l = 0; l < p.lanes(); ++l) {
-      reinterpret_cast<int*>(ws + P * pl)[idx(p.lane(l), 0, 0)] = val;
-    }
-  }
-};
-using Px = PxT<Ws>;
-
-// The pixel at index i, below B * hp * wp, of a Ws workspace.
-__device__ __forceinline__ Px px_at(float* ws, int B, int hp, int wp, long long i) {
-  const long long fs = (long long)hp * wp;
-  Px p;
-  p.st.ws = ws;
-  p.st.pl = B * fs;
-  p.st.fo = (i / fs) * fs;
-  p.hp = hp;
-  p.wp = wp;
-  p.y = (int)((i % fs) / wp);
-  p.x = (int)(i % wp);
-  p.ty = p.tx = 0;
-  p.pair = false;
-  return p;
-}
-
 template <class Q, int N>
 __device__ __forceinline__ float ring(const Q& p, int P, const int (&offs)[N][2]) {
   float acc = 0.0f;
@@ -260,7 +202,7 @@ __device__ __forceinline__ float ring(const Q& p, int P, const int (&offs)[N][2]
 
 // gradients (amaze:568-579), per pixel
 template <class Q>
-AMAZE_STAGE void gradients_px(const Q& p) {
+__device__ __forceinline__ void gradients_px(const Q& p) {
   const float cfa = p.v(CFA);
   const float cl = p.v(CFA, 0, -1), cr = p.v(CFA, 0, 1), cu = p.v(CFA, -1, 0), cd = p.v(CFA, 1, 0);
   const float delh = fabsf(cr - cl);
@@ -272,7 +214,7 @@ AMAZE_STAGE void gradients_px(const Q& p) {
 
 // the diagonal gradients (amaze:607-625), per cell
 template <class Q>
-AMAZE_STAGE void gradients_cell(const Q& p) {
+__device__ __forceinline__ void gradients_cell(const Q& p) {
   const Q s = p.rb_site();
   const bool sl = s.left();
   p.put(DELP, cellsum(fabsf(s.v(CFA, -1, 1) - s.v(CFA, 1, -1)), sl));
@@ -282,12 +224,6 @@ AMAZE_STAGE void gradients_cell(const Q& p) {
   const bool gl = g.left();
   p.put(DGP, cellsum(sqsum(gc - g.v(CFA, -1, 1), gc - g.v(CFA, 1, -1)), gl));
   p.put(DGM, cellsum(sqsum(gc - g.v(CFA, 1, 1), gc - g.v(CFA, -1, -1)), gl));
-}
-
-template <class Q>
-AMAZE_STAGE void gradients(const Q& p) {
-  gradients_px(p);
-  gradients_cell(p);
 }
 
 __device__ __forceinline__ float ratio(float cfa, float n, float dwfar, float dw, float far) {
@@ -304,7 +240,7 @@ __device__ __forceinline__ float vwt_of(const Q& p) {
 
 // cardinal interpolation (amaze:690-746)
 template <class Q>
-AMAZE_STAGE void cardinal(const Q& p) {
+__device__ __forceinline__ void cardinal(const Q& p) {
   const float cfa = p.v(CFA);
   const float dw0 = p.v(DW0), dw1 = p.v(DW1);
   const float cru = ratio(cfa, p.v(CFA, -1, 0), p.v(DW0, -2, 0), dw0, p.v(CFA, -2, 0));
@@ -363,7 +299,7 @@ __device__ __forceinline__ float bound_rb(float cfa, float cdv, float lo, float 
 
 // variance-based selection and bounding (amaze:805-874)
 template <class Q>
-AMAZE_STAGE void selection(const Q& p) {
+__device__ __forceinline__ void selection(const Q& p) {
   const float cfa = p.v(CFA);
   const float hcd = var3(p, HCDA, 0, 2) < var3(p, HCD0, 0, 2) ? p.v(HCDA) : p.v(HCD0);
   const float vcd = var3(p, VCDA, 2, 0) < var3(p, VCD0, 2, 0) ? p.v(VCDA) : p.v(VCD0);
@@ -406,7 +342,7 @@ __device__ __forceinline__ float ring_cdd(const Q& p, const int (&offs)[N][2]) {
 // directional weights hvwt (amaze:922-962) and the Nyquist test (:967-996),
 // at the R/B site of the pixel's cell
 template <class Q>
-AMAZE_STAGE void hvwt(const Q& p) {
+__device__ __forceinline__ void hvwt(const Q& p) {
   const Q s = p.rb_site();
   const float vwt = vwt_of(s), hwt = hwt_of(s);
   const float uave = sum4(s, VCD, -1, 0), dave = sum4(s, VCD, 1, 0);
@@ -440,7 +376,7 @@ template <class Q>
 __device__ __forceinline__ bool nm_of(const Q& p) { return p.iv(NYQ) > 0 && p.rb(); }
 
 template <class Q>
-AMAZE_STAGE void area(const Q& p) {
+__device__ __forceinline__ void area(const Q& p) {
   const Q s = p.rb_site();
   if (!nm_of(s)) {
     p.put(HVWT1, p.v(HVWT0));
@@ -475,7 +411,7 @@ AMAZE_STAGE void area(const Q& p) {
 
 // populate G (amaze:1060-1075): the colour difference of the R/B site
 template <class Q>
-AMAZE_STAGE void populate(const Q& p) {
+__device__ __forceinline__ void populate(const Q& p) {
   const Q s = p.rb_site();
   const float hv = s.v(HVWT);
   p.put(DGRB0A, cellsum(fma_(s.v(HCD), 1.0f - hv, s.v(VCD) * hv), s.left()));
@@ -488,7 +424,7 @@ __device__ __forceinline__ float rgbgreen0(const Q& q) {
 
 // G curvature in the Nyquist cells (amaze:1077-1084)
 template <class Q>
-AMAZE_STAGE void curvature(const Q& p) {
+__device__ __forceinline__ void curvature(const Q& p) {
   const Q s = p.rb_site();
   if (!nm_of(s)) {
     p.put(D2H, 0.0f);
@@ -509,7 +445,7 @@ __device__ __forceinline__ float gquinc(const Q& s, int P) {
 
 // Nyquist refinement via G curvature (amaze:1085-1102)
 template <class Q>
-AMAZE_STAGE void nyq_refine(const Q& p) {
+__device__ __forceinline__ void nyq_refine(const Q& p) {
   const float cfa = p.v(CFA);
   float d = p.v(DGRB0A);
   if (p.rb() && nm_of(p)) {  // an R/B pixel is its cell's site
@@ -533,7 +469,7 @@ __device__ __forceinline__ float bound_diag(float cfa, float v, float lo, float 
 
 // diagonal interpolation (amaze:1183-1256) at the R/B site
 template <class Q>
-AMAZE_STAGE void diag(const Q& p) {
+__device__ __forceinline__ void diag(const Q& p) {
   const Q s = p.rb_site();
   const float cfa = s.v(CFA);
   const float cm1 = s.v(CFA, 1, 1), cm2 = s.v(CFA, 2, 2);
@@ -566,7 +502,7 @@ AMAZE_STAGE void diag(const Q& p) {
 // ---- stage 4 --------------------------------------------------------------
 
 template <class Q>
-AMAZE_STAGE void rb_interp(const Q& p) {
+__device__ __forceinline__ void rb_interp(const Q& p) {
   const Q s = p.rb_site();
   const float pm = s.v(PMWT);
   p.put(RBINT, cellsum(0.5f * fma_(s.v(RBP), pm, fma_(s.v(RBM), 1.0f - pm, s.v(CFA))), s.left()));
@@ -585,7 +521,7 @@ __device__ __forceinline__ float bound_g(float rbint, float G, float lo, float h
 // G correction via R+B (amaze:1287-1352), the merge, and the chroma planes
 // (amaze:1358-1385): G-R on R rows (even) in d0, G-B on B rows (odd) in d1
 template <class Q>
-AMAZE_STAGE void gcorr(const Q& p) {
+__device__ __forceinline__ void gcorr(const Q& p) {
   const Q s = p.rb_site();
   const float cfa = s.v(CFA), rbint = s.v(RBINT);
   const float cl = s.v(CFA, 0, -1), cr = s.v(CFA, 0, 1), cu = s.v(CFA, -1, 0), cd = s.v(CFA, 1, 0);
@@ -615,7 +551,7 @@ AMAZE_STAGE void gcorr(const Q& p) {
 // Output pixel i of the cropped (B, hp - 32, wp - 32) planes, at padded
 // pixel p.
 template <class Q>
-AMAZE_STAGE void output_at(const Q& p, long long i, float* red, float* grn, float* blu) {
+__device__ __forceinline__ void output_at(const Q& p, long long i, float* red, float* grn, float* blu) {
   const float hv_u = p.v(HVWT, -1, 0), hv_d = p.v(HVWT, 1, 0);
   const float hv_l = p.v(HVWT, 0, -1), hv_r = p.v(HVWT, 0, 1);
   const float wsum = ((hv_u + (1.0f - hv_r)) + (1.0f - hv_l)) + hv_d;
@@ -637,16 +573,6 @@ AMAZE_STAGE void output_at(const Q& p, long long i, float* red, float* grn, floa
   red[i] = r * 65535.0f;
   grn[i] = g * 65535.0f;
   blu[i] = b * 65535.0f;
-}
-
-// Output pixel i of the cropped (B, hp - 32, wp - 32) planes from a Ws
-// workspace, for i below their size.
-__device__ __forceinline__ void output(float* ws, int B, int hp, int wp, long long i, float* red,
-                                       float* grn, float* blu) {
-  const int h = hp - 2 * PAD, w = wp - 2 * PAD;
-  const long long fs = (long long)h * w;
-  const long long b = i / fs;
-  output_at(px_at(ws, B, hp, wp, (b * hp + (i % fs) / w + PAD) * wp + i % w + PAD), i, red, grn, blu);
 }
 
 }  // namespace amaze_stages

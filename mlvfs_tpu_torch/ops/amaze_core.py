@@ -25,8 +25,8 @@ the sum it feeds: there the twin fuses it too (``evmath.fma``, one
 rounding), and the division by 65535 is a multiply by the float32
 reciprocal, as XLA folds it. The CUDA kernels (``csrc/amaze.cu``,
 ``csrc/amaze_scans.cu`` and ``csrc/amaze_mega.cu``, built with
-``-fmad=false``, their arithmetic in ``csrc/amaze_stages.cuh`` and
-``csrc/amaze_passes.cuh``) repeat the same
+``-fmad=false``, their arithmetic in ``csrc/amaze_stages.cuh``,
+``csrc/amaze_tiles.cuh`` and ``csrc/amaze_passes.cuh``) repeat the same
 operations and fuse the same products with ``__fmaf_rn``, so on the card
 they give the twin's values. Which products XLA fuses depends on how it
 fuses the whole program, so the twin is held to the reference at its own
@@ -44,6 +44,7 @@ the whole demosaic in one launch. Both give the twin's bits.
 
 from __future__ import annotations
 
+import ctypes
 import os
 
 import torch
@@ -614,17 +615,17 @@ def amaze_demosaic(raw):
     raise ValueError(f"amaze_demosaic: unsupported device {raw.device}")
 
 
-# Workspace planes of the CUDA kernel #9, in the order of enum Plane
-# (csrc/amaze_stages.cuh): every intermediate of the stencil stages
+# The planes the stencil stages read and write, in the order of enum Plane
+# (csrc/amaze_stages.cuh): every intermediate of the stages
 PLANES = (
     "cfa", "dirwts0", "dirwts1", "delhvsqsum", "delp", "delm", "dgsqp", "dgsqm",
     "hcd0", "vcd0", "hcdalt", "vcdalt", "dgintv", "dginth", "hcd", "vcd",
     "hvwt0", "nyq0", "nyq", "hvwt1", "hvwt", "dgrb0a", "dgrb2h", "dgrb2v", "dgrb0b", "rgbgreen",
     "pmwt0", "rbp", "rbm", "pmwt", "rbint", "rgbgreen2", "d0", "d1", "d0s", "d1s",
 )
-# Workspace planes of the CUDA kernel #8, in the order of enum SplitSlot
-# (csrc/amaze_stages.cuh): only those that cross one of its launches; the
-# rest live in shared memory or are recomputed (csrc/amaze.cu)
+# Workspace planes of the CUDA kernels #8 and #9, in the order of enum
+# SplitSlot (csrc/amaze_stages.cuh): only those that cross a stage group;
+# the rest live in shared memory or are recomputed (csrc/amaze_tiles.cuh)
 SPLIT_PLANES = (
     "cfa", "hcd", "vcd", "hvwt0", "nyq0", "nyq", "hvwt1", "hvwt", "dgrb0b",
     "rbp", "rbm", "pmwt0", "pmwt", "rgbgreen2", "d0", "d1", "d0s", "d1s",
@@ -683,13 +684,21 @@ def _amaze_demosaic_cuda(raw):
     return tuple(outs)
 
 
-def _amaze_demosaic_mega_cuda(raw):
+# kernel #9's steps, in its order (csrc/amaze_mega.cu): the times of
+# amaze_demosaic_mega_steps
+MEGA_STEPS = ("pad", "group 1", "dilate nyq0", "group 2", "refine hvwt1", "group 3", "refine pmwt0",
+              "group 4", "chroma d0 d1", "group 5")
+
+
+def _amaze_demosaic_mega_cuda(raw, stamps=None):
     """Kernel #9: the whole demosaic in one cooperative launch, which reads
-    the mosaics and pads them itself. A launch the card refuses raises with
-    its CUDA error; nothing falls back to the split kernels or the twin."""
+    the mosaics and pads them itself and, given an int64 device tensor
+    ``stamps`` of len(MEGA_STEPS) + 1, writes its step stamps there. A
+    launch the card refuses raises with its CUDA error; nothing falls back
+    to the split kernels or the twin."""
     global MEGA_LAUNCHES
 
-    outs, ws = _outputs_and_workspace(raw, PLANES)
+    outs, ws = _outputs_and_workspace(raw, SPLIT_PLANES)
     if ws is None:
         return tuple(outs)
     raw = raw.contiguous()
@@ -698,8 +707,31 @@ def _amaze_demosaic_mega_cuda(raw):
     with torch.cuda.device(raw.device):
         stream = torch.cuda.current_stream(raw.device).cuda_stream
         rc = lib.mlvfs_amaze_mega(raw.data_ptr(), ws.data_ptr(), *(o.data_ptr() for o in outs), b, h, w,
-                                  n_tiles(h + 2 * PAD), INV_65535, stream)
+                                  n_tiles(h + 2 * PAD), INV_65535,
+                                  None if stamps is None else stamps.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"amaze mega kernel launch failed (cudaError {rc})")
     MEGA_LAUNCHES += 1
     return tuple(outs)
+
+
+def mega_plan(h: int, w: int) -> dict:
+    """How kernel #9 launches on the current card for (h, w) frames: block
+    size, blocks an SM, SMs, dynamic shared memory bytes, and whether refine
+    and dilate take their rings (else their row walks)."""
+    out = (ctypes.c_longlong * 6)()
+    rc = _build.library("amaze_mega").mlvfs_amaze_mega_plan(h, w, out)
+    if rc != 0:
+        raise RuntimeError(f"amaze mega kernel cannot launch {h}x{w} (cudaError {rc})")
+    keys = ("threads", "blocks_per_sm", "sms", "smem_bytes", "refine_ring", "dilate_ring")
+    return dict(zip(keys, out))
+
+
+def amaze_demosaic_mega_steps(raw):
+    """Kernel #9 on a CUDA batch with its step stamps: ((R, G, B), {step of
+    MEGA_STEPS: ms}), each step's time up to the grid sync after it, read
+    from block 0's %globaltimer."""
+    stamps = torch.zeros(len(MEGA_STEPS) + 1, dtype=torch.int64, device=raw.device)
+    outs = _amaze_demosaic_mega_cuda(raw, stamps)
+    ns = stamps.cpu().tolist()
+    return outs, {name: (ns[k + 1] - ns[k]) / 1e6 for k, name in enumerate(MEGA_STEPS)}

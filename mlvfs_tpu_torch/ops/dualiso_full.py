@@ -24,8 +24,10 @@ Float32 stages follow the reference's operation order with the fused
 multiply-adds XLA on the CPU forms (``evmath.fma``); the EV transforms are
 the 20-bit tables with ``exact_luts``, else computed (``evmath``). As in the
 reference, this path is held to the reference by PSNR, not bit equality:
-cos is correctly rounded here and not in XLA, and the hdr_check mean is a
-float32 sum taken in another order.
+cos is correctly rounded here and not in XLA. hdr_check's mean is an exact
+sum (``hdr_check_sums``), so the card and the CPU decide alike; the
+reference's float32 sum can round otherwise only for a mean within its
+rounding of 0.5.
 """
 
 from __future__ import annotations
@@ -61,6 +63,14 @@ def hdr_check_batch(imgs: torch.Tensor, black: int, white: int) -> torch.Tensor:
     """Quick interlaced-exposure detector (hdr_check, hdr.c:407-439) of a batch
     (B, H, W) int16 (u16 bits): (B,) bool on the batch's device. The mean
     |EV difference| to the row two below, over valid pixels, exceeds 0.5."""
+    diff, num = hdr_check_terms(imgs, black, white)
+    mean = torch.where(num > 0, hdr_check_sums(diff) / num.clamp(min=1), 0.0)
+    return mean > 0.5
+
+
+def hdr_check_terms(imgs: torch.Tensor, black: int, white: int):
+    """hdr_check's float32 |EV differences| (B, H, W), 0 at pixels that are
+    not valid, and the (B,) counts of valid pixels."""
     b, h, w = imgs.shape
     p = u16(imgs)
     p2 = shift(p, 2, 0)
@@ -73,9 +83,19 @@ def hdr_check_batch(imgs: torch.Tensor, black: int, white: int) -> torch.Tensor:
     evf = torch.where(sig > 0, mag, torch.where(sig == 0, -torch.inf, 0.0))
     # evf(p2) is evf shifted up two rows (its 0-filled rows are evf(0) = 0)
     diff = torch.where(valid, (shift(evf, 2, 0) - evf).abs(), 0.0)
-    num = valid.sum((1, 2))
-    mean = torch.where(num > 0, diff.sum((1, 2)) / num.clamp(min=1), 0.0)
-    return mean > 0.5
+    return diff, valid.sum((1, 2))
+
+
+def hdr_check_sums(diff: torch.Tensor) -> torch.Tensor:
+    """(B,) sums of hdr_check's (B, H, W) float32 differences in float64,
+    exact in any order, so the same on every device: math.fsum of each
+    frame's differences. A nonzero evf is log2(x) * 2^15 with log2(x) >= 0.5
+    (x >= 2), a multiple of 2^-9 below 2^19, so every difference is too (or
+    inf, where a valid pixel sits at black), and a sum of fewer than 2^25 of
+    them stays below 2^53 * 2^-9."""
+    if diff.shape[-2] * diff.shape[-1] >= 1 << 25:
+        raise ValueError(f"hdr_check: a {diff.shape[-2]}x{diff.shape[-1]} frame is past exact sums")
+    return diff.to(torch.float64).sum((1, 2))
 
 
 # ------------------------------------------------------- the reconstruction

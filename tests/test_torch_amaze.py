@@ -265,8 +265,8 @@ def _enum(src, name):
 
 def test_workspace_planes_match_the_kernels_enums():
     """ops/amaze_core.py's plane lists follow csrc/amaze_stages.cuh: PLANES
-    (kernel #9's workspace) is enum Plane, SPLIT_PLANES (kernel #8's) is
-    enum SplitSlot, each S_<plane> naming the plane it holds, split_slot()
+    (every plane the stages name) is enum Plane, SPLIT_PLANES (the workspace
+    of kernels #8 and #9) is enum SplitSlot, each S_<plane> naming the plane it holds, split_slot()
     mapping every plane to its slot and every other plane to -1, and the
     int32 planes are in both where #8 holds them."""
     src = open(os.path.join(os.path.dirname(amaze_core.__file__), "..", "csrc", "amaze_stages.cuh")).read()

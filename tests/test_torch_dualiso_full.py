@@ -21,6 +21,7 @@ Tolerances, and why:
 """
 
 import dataclasses
+import math
 import os
 import struct
 
@@ -48,6 +49,7 @@ from mlvfs_tpu_torch.ops import dualiso_full as full
 from mlvfs_tpu_torch.ops import evmath, luts, pixels
 from mlvfs_tpu_torch.pipeline import kernels
 from mlvfs_tpu_torch.pipeline.config import ProcessingConfig as PortConfig
+from tests.test_torch_hdr_frames import hdr_threshold_frames
 
 BLACK, WHITE = 2048, 15000
 BLACK20 = BLACK * 64
@@ -231,6 +233,39 @@ def _highlight_pairs(img, is_bright, white20, y1):
     n = len(vals)
     b_lo, b_hi = vals[n * 98 // 100], vals[int(np.float32(n) * np.float32(0.999))]
     return int(((bright > b_lo) & (bright < b_hi)).sum())
+
+
+def test_hdr_check_decides_near_threshold_as_reference():
+    """hdr_check on frames whose mean |EV difference| sits just below and
+    just above 0.5 decides as the reference does on CPU JAX, and its sums
+    are math.fsum of the float32 differences, exactly."""
+    frames, means = hdr_threshold_frames(BLACK, WHITE)
+    assert means[0] < 0.5 < means[1] and max(abs(m - 0.5) for m in means) < 2e-4
+    t = _t(frames.view(np.int16))
+    got = full.hdr_check_batch(t, BLACK, WHITE)
+    assert got.tolist() == [False, True]
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref_full.hdr_check_batch(jnp.asarray(frames),
+                                                                                   BLACK, WHITE)))
+    diff, num = full.hdr_check_terms(t, BLACK, WHITE)
+    assert diff.dtype == torch.float32
+    sums = full.hdr_check_sums(diff)
+    for i in range(len(frames)):
+        assert float(sums[i]) == math.fsum(diff[i].double().flatten().tolist())
+        assert float(sums[i]) / int(num[i]) == means[i]
+
+
+def test_hdr_check_sums_do_not_depend_on_order():
+    """The sum of differences is the same whatever the order of its terms:
+    the differences of a dual-ISO frame, shuffled, in float64, equal fsum."""
+    _, frames = _frames([0, None])
+    diff, _ = full.hdr_check_terms(_t(frames.view(np.int16)), BLACK, WHITE)
+    rng = np.random.default_rng(3)
+    for i in range(len(frames)):
+        flat = diff[i].flatten()
+        want = math.fsum(flat.double().tolist())
+        for _ in range(3):
+            shuffled = flat[torch.from_numpy(rng.permutation(flat.numel()))].reshape(diff[i].shape)
+            assert float(full.hdr_check_sums(shuffled[None])[0]) == want
 
 
 @pytest.mark.parametrize("gbrg", [False, True])

@@ -1261,3 +1261,282 @@ def test_unpack_model_matches_twin(bpp, h, w, b, cut, in_off, out_off):
     groups = min(h * w // (8 * ppb), n_words // (8 * wpb)) if bpp in UNPACK_BPPS else 0
     assert stats.get("groups", 0) == b * groups
     assert stats.get("plain", 0) == b * (h * w - groups * 8 * ppb)
+
+
+# ---------------------------------------------------------------- kernel #9
+#
+# csrc/amaze_mega.cu: one cooperative launch of persistent blocks that runs
+# split mode's steps (#8's stage groups on 32 x 32 tiles, #10's walks) in
+# its order, a grid sync between steps, each block taking the items of a
+# step in a grid-stride loop, with one dynamic shared memory size for all.
+
+MEGA_SRC = os.path.join(_build.SRC_DIR, "amaze_mega.cu")
+TILES_SRC = os.path.join(_build.SRC_DIR, "amaze_tiles.cuh")
+PASSES_SRC = os.path.join(_build.SRC_DIR, "amaze_passes.cuh")
+SCANS_SRC = os.path.join(_build.SRC_DIR, "amaze_scans.cu")
+STAGES_SRC = os.path.join(_build.SRC_DIR, "amaze_stages.cuh")
+
+
+def _read(path):
+    with open(path) as f:
+        return f.read()
+
+
+def _constant(src, name):
+    return int(re.search(rf"\b{name} = (\d+)", src).group(1))
+
+
+def _enum_names(src, name):
+    body = re.search(r"enum " + name + r" \{(.*?)\};", src, re.S).group(1)
+    return [t.strip() for t in body.replace("\n", " ").split(",") if t.strip()]
+
+
+def group_smem_bytes():
+    """{group: bytes} of the shared-memory planes of #8's stage groups, from
+    csrc/amaze_tiles.cuh's reach table: a plane of reach (ry, rx) holds
+    (TILE_H + 2 ry) x (TILE_W + 2 rx) floats."""
+    src = _read(TILES_SRC)
+    th, tw = _constant(src, "TILE_H"), _constant(src, "TILE_W")
+    body = src[src.index("constexpr Reach reach(int G, int P)"):src.index("constexpr bool in_shared")]
+    out = {}
+    for g, block in re.findall(r"if \(G == (\d)\) \{(.*?)\n  \}", body, re.S):
+        floats = 0
+        for planes, ry, rx in re.findall(r"((?:\s*(?:\|\|)?\s*P == \w+)+)\s*\?\s*Reach\{(\d+), (\d+)\}", block):
+            n = len(re.findall(r"P == \w+", planes))
+            floats += n * (th + 2 * int(ry)) * (tw + 2 * int(rx))
+        out[int(g)] = 4 * floats
+    return out
+
+
+def mega_walks(wp):
+    """(refine by its ring, dilate by its ring) for planes of wp padded
+    columns, as #10 chooses (csrc/amaze_scans.cu): the refine ring where its
+    rows fit a block's shared memory, the dilate ring where a row of cells is
+    at most 32 words."""
+    src = _read(PASSES_SRC)
+    ring_rows, max_smem = _constant(src, "REFINE_RING"), _constant(src, "MAX_SMEM")
+    return (ring_rows + 2) * wp * 4 <= max_smem, wp // 2 <= 32 * 32
+
+
+def mega_smem_model(wp):
+    """Kernel #9's dynamic shared memory: the most of groups 1, 3 and 4, the
+    chosen refine and dilate walks and a staged chroma block."""
+    src = _read(PASSES_SRC)
+    groups = group_smem_bytes()
+    refine_ring, dilate_ring = mega_walks(wp)
+    refine = (_constant(src, "REFINE_RING") + 2) * wp * 4 if refine_ring else 2 * wp * 4
+    nwords = (wp // 2 + 31) // 32
+    dilate = (_constant(src, "DILATE_RING") * wp * 4 + 11 * nwords * 4) if dilate_ring else 3 * wp * 4 + wp // 2
+    rows, lanes, halo = (_constant(src, n) for n in ("CHROMA_ROWS", "CHROMA_LANES", "CHROMA_HALO"))
+    chroma = (rows + 2 * halo) * (lanes + 2 * halo) * 4
+    return max(groups[1], groups[3], groups[4], refine, dilate, chroma)
+
+
+def test_mega_group_shared_memory_from_reach():
+    """The reach table gives group 1 the mosaic at 50 x 50, three planes at
+    46 x 46, six at 42 x 42 and two at 38 x 38 (22,320 floats), and groups 3
+    and 4 less; only 1, 3 and 4 hold planes in shared memory."""
+    groups = group_smem_bytes()
+    assert set(groups) == {1, 3, 4}
+    assert groups[1] == 4 * (50 * 50 + 3 * 46 * 46 + 6 * 42 * 42 + 2 * 38 * 38) == 4 * 22320
+    assert groups[3] < groups[1] and groups[4] < groups[3]
+
+
+@pytest.mark.parametrize("wp, refine_ring, dilate_ring, smem", [
+    (50, True, True, 89280),        # group 1's tile planes bound it
+    (1952, True, True, 89280),      # 1080p: the rings (62,464 and 63,828 B) fit under group 1
+    (2049, True, True, 89280),      # the widest row of 1,024 cells: dilate's ring still
+    (2050, True, False, 89280),     # 1,025 cells: dilate's row walk (26,625 B)
+    (7264, True, False, 232448),    # the widest refine ring, all of a block's shared memory
+    (7300, False, False, 91250),    # past it: both row walks, dilate's three rows the most
+])
+def test_mega_walks_and_shared_memory(wp, refine_ring, dilate_ring, smem):
+    """Kernel #9 picks refine's and dilate's walks per width as #10 does, and
+    its dynamic shared memory is the most of the groups and the chosen
+    walks; the source computes both from the same terms."""
+    assert mega_walks(wp) == (refine_ring, dilate_ring)
+    assert mega_smem_model(wp) == smem
+    mega, scans = _read(MEGA_SRC), _read(SCANS_SRC)
+    assert "ps::refine_ring_smem(wp) <= ps::MAX_SMEM" in mega and "refine_ring_smem(wp) <= MAX_SMEM" in scans
+    assert "ps::dilate_ring_fits(wp)" in mega and "dilate_ring_fits(wp)" in scans
+    body = mega[mega.index("inline size_t mega_smem("):mega.index("__device__ __forceinline__ long long globaltimer")]
+    for term in ("smem_bytes(1)", "smem_bytes(3)", "smem_bytes(4)", "ps::refine_ring_smem(wp)",
+                 "ps::refine_smem(wp)", "ps::dilate_ring_smem(wp)", "ps::dilate_smem(wp)",
+                 "ps::CHROMA_H * ps::CHROMA_W"):
+        assert term in body, term
+
+
+def mega_steps_from_source():
+    """Kernel #9's steps in order, read from its kernel body: ("pad",),
+    ("group", G), (pass, source slot, destination slot[, parity]); and the
+    count of grid syncs between them."""
+    src = _read(MEGA_SRC)
+    body = src[src.index("amaze_mega_kernel(const float* raw"):src.index("// How a launch of (h, w) frames")]
+    body = body[body.index("pad(q"):]
+    steps, syncs = [], 0
+    for line in body.splitlines():
+        line = line.strip()
+        if line == "sync();":
+            syncs += 1
+        elif line.startswith("pad(q"):
+            steps.append(("pad",))
+        elif m := re.match(r"tiles<(\d)>\(", line):
+            steps.append(("group", int(m.group(1))))
+        elif m := re.match(r"(dilate|refine)\(q, \w+, (S_\w+), (S_\w+)", line):
+            steps.append(m.groups())
+        elif m := re.match(r"chroma\(q, (S_\w+), (S_\w+), (\d), (S_\w+), (S_\w+), (\d)", line):
+            a, b, p, c, d, e = m.groups()
+            steps.append(("chroma", (a, b, int(p)), (c, d, int(e))))
+        elif line.startswith("output(q"):
+            steps.append(("group", 5))
+        elif line.startswith("if (stamps != nullptr)"):
+            break
+    return steps, syncs
+
+
+def split_steps_from_source():
+    """Split mode's steps in order, read from ops/amaze_core.py
+    _amaze_demosaic_cuda, its planes named by their workspace slots."""
+    with open(amaze_core.__file__) as f:
+        src = f.read()
+    body = src[src.index("def _amaze_demosaic_cuda("):src.index("def _amaze_demosaic_mega_cuda(")]
+    slot = dict(zip(amaze_core.SPLIT_PLANES, _enum_names(_read(STAGES_SRC), "SplitSlot")))
+    steps, chroma = [], []
+    for line in body.splitlines():
+        line = line.strip()
+        if line.startswith('plane["cfa"].copy_(pad_mosaic(raw))'):
+            steps.append(("pad",))
+        elif m := re.match(r"stage\((\d)\)", line):
+            steps.append(("group", int(m.group(1))))
+        elif m := re.match(r'amaze_scans\.(dilate|refine)\(plane\["(\w+)"\], out=plane\["(\w+)"\]\)', line):
+            steps.append((m.group(1), slot[m.group(2)], slot[m.group(3)]))
+        elif m := re.match(r'amaze_scans\.chroma\(plane\["(\w+)"\], (\d), out=plane\["(\w+)"\]\)', line):
+            chroma.append((slot[m.group(1)], slot[m.group(3)], int(m.group(2))))
+            if len(chroma) == 2:
+                steps.append(("chroma", *chroma))
+    return steps
+
+
+def test_mega_steps_follow_split_mode():
+    """Kernel #9 runs split mode's steps in its order, with the same planes in
+    and out of each pass and a grid sync between each two (9 syncs);
+    MEGA_STEPS names them, and the kernel's N_STAMPS is one more, as the
+    wrapper's stamps buffer is."""
+    steps, syncs = mega_steps_from_source()
+    assert steps == split_steps_from_source()
+    assert [s[0] for s in steps] == ["pad", "group", "dilate", "group", "refine", "group", "refine", "group",
+                                     "chroma", "group"]
+    assert syncs == len(steps) - 1 == 9
+    assert len(amaze_core.MEGA_STEPS) == len(steps)
+    assert _constant(_read(MEGA_SRC), "N_STAMPS") == len(steps) + 1
+
+
+def mega_teams():
+    """{group 1..4, "chroma": teams a block splits into}, from
+    csrc/amaze_mega.cu's block size NT, TEAM_THREADS (0: the whole block)
+    and CHROMA_TEAM."""
+    src = _read(MEGA_SRC)
+    nt = _constant(src, "NT")
+    per_group = [int(v) for v in re.search(r"TEAM_THREADS\[5\] = \{([\d, ]+)\}", src).group(1).split(",")]
+    teams = {g: nt // (nt if per_group[g] == 0 else per_group[g]) for g in range(1, 5)}
+    teams["chroma"] = nt // _constant(src, "CHROMA_TEAM")
+    return teams
+
+
+def mega_coverage(b, h, w, grid):
+    """Counts, per padded pixel, of the writes of kernel #9's item loops
+    modelled as its source runs them: a stage
+    group's (frame, tile row, tile column) items, team k of block j taking
+    items (j + m * grid) * teams + k, and each tile's own pixels (and the
+    cell regions' own sites, both lanes); the passes' (frame, raster tile)
+    items and each tile's kept rows; the chroma pass's (plane, frame, row
+    block, lane block) items, taken by teams likewise, and their cells; the
+    output's pixels. Returns {step: counts}."""
+    tiles_src = _read(TILES_SRC)
+    th, tw = _constant(tiles_src, "TILE_H"), _constant(tiles_src, "TILE_W")
+    hp, wp = h + 2 * amaze_core.PAD, w + 2 * amaze_core.PAD
+    ny, nx = -(-hp // th), -(-wp // tw)
+    teams = mega_teams()
+    out = {}
+    for g in range(1, 5):
+        out[f"group {g}"], out[f"group {g} cells"] = _group_cover(b, hp, wp, ny, nx, th, tw, grid, teams[g])
+    _mega_rest(out, b, h, w, hp, wp, grid, teams)
+    return out
+
+
+def _group_cover(b, hp, wp, ny, nx, th, tw, grid, teams):
+    """Writes per padded pixel of a stage group's tiles: the items the teams
+    take, each mapped to its (frame, tile row, tile column), and the pixels
+    each tile writes (its own, and its own cell sites with both lanes)."""
+    taken = np.concatenate([np.arange(r.start, r.stop, r.step) for r in _team_items(b * ny * nx, grid, teams)])
+    f, r = taken // (ny * nx), taken % (ny * nx)
+    hits = np.zeros((b, ny, nx), np.int32)
+    np.add.at(hits, (f, r // nx, r % nx), 1)
+    px = np.zeros((b, hp, wp), np.int32)
+    cells = np.zeros((b, hp, wp), np.int32)
+    ty, tx = np.mgrid[0:th, 0:tw]
+    cy, cc = np.mgrid[0:th, 0:tw // 2]
+    for i, j in itertools.product(range(ny), range(nx)):
+        Y0, X0 = i * th, j * tw
+        n = hits[:, i, j][:, None]
+        own = (Y0 + ty < hp) & (X0 + tx < wp)
+        px[:, (Y0 + ty)[own], (X0 + tx)[own]] += n
+        # the cell region: cell c of a row at its R/B site, both lanes
+        site_x = 2 * cc + ((Y0 + cy) % hp & 1)
+        own = (Y0 + cy < hp) & (X0 + site_x < wp)
+        for lane in (0, 1):
+            cells[:, (Y0 + cy)[own], (X0 + (site_x ^ lane))[own]] += n
+    return px, cells
+
+
+def _team_items(n_items, grid, teams):
+    """The items each team of a grid of blocks takes: team k of block j
+    takes (j + m * grid) * teams + k."""
+    return [range(j * teams + k, n_items, grid * teams) for j in range(grid) for k in range(teams)]
+
+
+def _mega_rest(out, b, h, w, hp, wp, grid, teams):
+    T = amaze_core.n_tiles(hp)
+    rows = np.zeros((b, hp), np.int32)
+    for items in _team_items(b * T, grid, 1):
+        for i in items:
+            y0, _, keep = _tiles(hp)[i % T]
+            for r, k in enumerate(keep):
+                rows[i // T, y0 + r] += k
+    out["pass rows"] = rows
+    lb, rb = -(-wp // CHROMA_LANES), -(-hp // CHROMA_ROWS)
+    per_frame = lb * rb
+    chroma = np.zeros((2, b, hp, wp), np.int32)
+    for items in _team_items(2 * b * per_frame, grid, teams["chroma"]):
+        for i in items:
+            second = i >= b * per_frame
+            r = i - b * per_frame if second else i
+            k = r % per_frame
+            Y0, X0 = (k // lb) * CHROMA_ROWS, (k % lb) * CHROMA_LANES
+            chroma[int(second), r // per_frame, Y0:Y0 + CHROMA_ROWS, X0:X0 + CHROMA_LANES] += 1
+    out["chroma"] = chroma
+    output = np.zeros(b * h * w, np.int32)
+    for k in range(grid):
+        output[k::grid] += 1  # a block's threads stride by grid times their count: the same cover
+    out["output"] = output
+
+
+@pytest.mark.parametrize("b, h, w, grid", [
+    (1, 17, 18, 264),      # two blocks an SM on 132 SMs; 4 x 2 tiles, fewer items than blocks
+    (1, 160, 2100, 264),   # the last tile column straddles the wrap (2,132 = 66.6 tiles)
+    (1, 160, 2100, 7),     # a grid that divides no step's items
+    (3, 96, 32, 6),        # a grid that divides group items (3 x 4 x 2 = 24) and pass items (3)
+    (16, 64, 96, 132),     # B = 16
+    (16, 1080, 1920, 264),  # 1080p, B = 16: 34,160 group items, 144 pass items
+    (270, 40, 64, 264),    # 2,430 group items, 270 pass items: more than the blocks, no multiple
+])
+def test_mega_items_cover_every_pixel_once(b, h, w, grid):
+    """Each step of kernel #9 writes every pixel of every frame exactly once:
+    the stage groups' tiles (pixel and cell regions, a team of the block
+    each) and the passes' kept rows and chroma blocks, whatever the grid,
+    and wherever the last tiles straddle the wrap."""
+    assert mega_teams() == {1: 1, 2: 4, 3: 2, 4: 4, "chroma": 2}
+    cover = mega_coverage(b, h, w, grid)
+    assert len(cover) == 11
+    for name, counts in cover.items():
+        assert (counts == 1).all(), (name, int(counts.min()), int(counts.max()))

@@ -18,9 +18,10 @@ import torch
 from mlvfs_tpu_torch.format import synth
 from mlvfs_tpu_torch import _build
 from mlvfs_tpu_torch.ops import (alias, amaze_core, amaze_edge, amaze_scans, chroma_smooth, dualiso,
-                                 patternnoise, patternnoise_fused, pixels, unpack)
+                                 dualiso_full, patternnoise, patternnoise_fused, pixels, unpack)
 from mlvfs_tpu_torch.pipeline.config import ProcessingConfig
 from mlvfs_tpu_torch.pipeline.convert import convert_clip
+from tests.test_torch_hdr_frames import hdr_threshold_frames
 
 
 def _need_card():
@@ -405,6 +406,30 @@ def _edge_inputs(rng, b, h, w, density):
 
 
 @pytest.mark.cuda
+def test_hdr_check_on_card_matches_cpu():
+    """hdr_check decides on the card as on the CPU, with the same sums to the
+    bit, on frames whose means sit just below and just above 0.5 and on
+    dual-ISO and single-ISO frames."""
+    _need_card()
+    black, white = 2048, 15000
+    near, _ = hdr_threshold_frames(black, white)
+    spec = synth.SynthSpec(width=256, height=192, frames=4, dual_iso=3)
+    rng = np.random.default_rng(8)
+    plain = [synth.make_frame_data(synth.SynthSpec(width=256, height=192, frames=1), rng) for _ in range(2)]
+    mixed = np.stack([synth.make_frame_data(spec, rng) for _ in range(2)] + plain)
+    for frames in (near, mixed):
+        t = torch.from_numpy(frames.view(np.int16))
+        diff, _ = dualiso_full.hdr_check_terms(t, black, white)
+        card, _ = dualiso_full.hdr_check_terms(t.cuda(), black, white)
+        assert torch.equal(dualiso_full.hdr_check_sums(card).cpu(), dualiso_full.hdr_check_sums(diff))
+        got = dualiso_full.hdr_check_batch(t.cuda(), black, white)
+        assert got.device.type == "cuda"
+        assert torch.equal(got.cpu(), dualiso_full.hdr_check_batch(t, black, white))
+    assert dualiso_full.hdr_check_batch(torch.from_numpy(near.view(np.int16)).cuda(), black, white).tolist() == [
+        False, True]
+
+
+@pytest.mark.cuda
 def test_amaze_edge_kernel_matches_plain():
     """Kernel #6 is bit-equal to its twin (and to the CPU) at 1080p and at
     odd, even, short and tall sizes (not a multiple of its 8 x 128 tile),
@@ -492,6 +517,7 @@ def _mosaic(rng, b, h, w, straddle=False):
     (1, 300, 50, False),
     (16, 1060, 1872, False),  # EOS M at B=16: 1904 padded columns, no multiple of a tile
     (2, 160, 224, True),    # Nyquist cells across a tile edge
+    (1, 96, 7300, False),   # past both rings of #10: its row walks between the groups
 ])
 def test_amaze_demosaic_kernel_matches_plain(b, h, w, straddle):
     """Kernel #8's stage groups with #10's passes between them are bit-equal
@@ -515,12 +541,25 @@ def test_amaze_demosaic_kernel_matches_plain(b, h, w, straddle):
 @pytest.mark.cuda
 def test_amaze_mega_kernel_matches_plain_and_split(monkeypatch):
     """Kernel #9 is bit-equal to the plain twin and to #8 + #10 (split mode)
-    at 1080p, at two tiles, at three tiles, at odd heights and at the
-    smallest frame; each call adds one to MEGA_LAUNCHES and nothing to #8's
-    or #10's counters."""
+    at 1080p, at two tiles, at three tiles, at odd heights, at the smallest
+    frame, past the dilate ring's width (2,132 padded columns: its row walk)
+    and past the refine ring's (7,332: both row walks), and on a batch of
+    small frames whose group and pass items are more than the grid's blocks
+    and no multiple of them, so that blocks take a second item and not all
+    do; each call adds one to MEGA_LAUNCHES and nothing to #8's or #10's
+    counters."""
     _need_card()
     rng = np.random.default_rng(13)
-    for b, h, w in [(2, 1080, 1920), (1, 160, 224), (3, 300, 50), (2, 33, 46), (1, 17, 18)]:
+    shapes = [(2, 1080, 1920), (1, 160, 224), (3, 300, 50), (2, 33, 46), (1, 17, 18), (1, 160, 2100),
+              (1, 96, 7300), (270, 40, 64)]
+    plan = amaze_core.mega_plan(40, 64)
+    grid = plan["blocks_per_sm"] * plan["sms"]
+    hp, wp = 40 + 2 * amaze_core.PAD, 64 + 2 * amaze_core.PAD
+    items = (270 * -(-hp // 32) * -(-wp // 32), 270 * amaze_core.n_tiles(hp))  # group tiles, pass tiles
+    assert all(n > grid and n % grid for n in items), (items, grid)
+    assert not amaze_core.mega_plan(160, 2100)["dilate_ring"]
+    assert not amaze_core.mega_plan(96, 7300)["refine_ring"] and amaze_core.mega_plan(1080, 1920)["refine_ring"]
+    for b, h, w in shapes:
         raw = _mosaic(rng, b, h, w).cuda()
         monkeypatch.setenv(amaze_core.MODE_ENV, "split")
         split = amaze_core.amaze_demosaic(raw)
@@ -541,16 +580,38 @@ def test_amaze_mega_kernel_matches_plain_and_split(monkeypatch):
 
 
 @pytest.mark.cuda
+def test_amaze_mega_step_stamps():
+    """With stamps, kernel #9 gives the same bits and a positive time for
+    each of its ten steps, in MEGA_STEPS order, summing to no more than the
+    call's time by CUDA events."""
+    _need_card()
+    raw = _mosaic(np.random.default_rng(15), 2, 300, 224).cuda()
+    want = amaze_core.amaze_demosaic_plain(raw)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    got, steps = amaze_core.amaze_demosaic_mega_steps(raw)
+    end.record()
+    torch.cuda.synchronize()
+    assert list(steps) == list(amaze_core.MEGA_STEPS)
+    assert all(ms > 0 for ms in steps.values()), steps
+    assert sum(steps.values()) <= start.elapsed_time(end)
+    assert all(torch.equal(g, v) for g, v in zip(got, want))
+
+
+@pytest.mark.cuda
 def test_amaze_mega_entry_refuses_bad_shape():
-    """The C entry refuses a frame it cannot run (here 16 rows, under the
-    reflect pad's 17) with a CUDA error code, on which the wrapper raises."""
+    """The C entry refuses a frame it cannot run (16 rows, under the reflect
+    pad's 17; 65,538 padded columns, past its 65,536) with a CUDA error
+    code, on which the wrapper raises."""
     _need_card()
     lib = _build.library("amaze_mega")
     x = torch.zeros((1, 16, 18), device="cuda")
-    ws = torch.zeros((len(amaze_core.PLANES), 1, 48, 50), device="cuda")  # #9's workspace
+    ws = torch.zeros((len(amaze_core.SPLIT_PLANES), 1, 48, 50), device="cuda")  # #9's workspace
     stream = torch.cuda.current_stream().cuda_stream
     assert lib.mlvfs_amaze_mega(x.data_ptr(), ws.data_ptr(), x.data_ptr(), x.data_ptr(), x.data_ptr(),
-                                1, 16, 18, 1, amaze_core.INV_65535, stream) != 0
+                                1, 16, 18, 1, amaze_core.INV_65535, None, stream) != 0
+    with pytest.raises(RuntimeError):
+        amaze_core._amaze_demosaic_mega_cuda(torch.zeros((1, 17, 65506), device="cuda"))
 
 
 @pytest.mark.cuda
@@ -670,16 +731,42 @@ def test_library_path_follows_included_headers(tmp_path, monkeypatch):
     before = {n: _build.library_path(n) for n in names}
     monkeypatch.setattr(_build, "SRC_DIR", str(tmp_path))
     assert {n: _build.library_path(n) for n in names} == before
-    assert _build.sources("amaze_mega") == ["amaze_mega.cu", "amaze_passes.cuh", "amaze_stages.cuh",
-                                            "cp_async.cuh"]
+    assert _build.sources("amaze_mega") == ["amaze_mega.cu", "amaze_passes.cuh", "amaze_tiles.cuh",
+                                            "cp_async.cuh", "team.cuh", "amaze_stages.cuh"]
     for header, users in [("amaze_stages.cuh", {"amaze", "amaze_mega"}),
+                          ("amaze_tiles.cuh", {"amaze", "amaze_mega"}),
                           ("amaze_passes.cuh", {"amaze_scans", "amaze_mega"}),
+                          ("team.cuh", {"amaze", "amaze_scans", "amaze_mega"}),
                           ("cp_async.cuh", {"amaze_scans", "amaze_mega", "dualiso_preview"})]:
         path = tmp_path / header
         path.write_text(path.read_text() + "\n// edited\n")
         after = {n: _build.library_path(n) for n in names}
         assert {n for n in names if after[n] != before[n]} == users, header
         before = after
+
+
+PTXAS_REPORT = """ptxas info    : 0 bytes gmem
+ptxas info    : Function properties for _Z6helperv
+    24 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads
+ptxas info    : Compiling entry function '_Z4kernPf' for 'sm_90a'
+ptxas info    : Function properties for _Z4kernPf
+    176 bytes stack frame, 356 bytes spill stores, 596 bytes spill loads
+ptxas info    : Used 64 registers, used 1 barriers, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z5otherv' for 'sm_90a'
+ptxas info    : Function properties for _Z5otherv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 40 registers, 368 bytes cmem[0]
+"""
+
+
+def test_parse_ptxas_reads_each_entry():
+    """The -Xptxas -v report gives each entry function's registers and its
+    own stack and spills, not a callee's."""
+    assert _build.parse_ptxas(PTXAS_REPORT) == {
+        "_Z4kernPf": {"registers": 64, "stack": 176, "spill_stores": 356, "spill_loads": 596},
+        "_Z5otherv": {"registers": 40, "stack": 0, "spill_stores": 0, "spill_loads": 0},
+    }
+    assert "-v" in _build.flags("amaze_mega") and _build.flags("amaze_mega")[-1] == "-fmad=false"
 
 
 def test_build_without_nvcc_raises(monkeypatch):
