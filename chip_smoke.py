@@ -1814,13 +1814,21 @@ def flags_on_path(work, card, device="cuda", frames=48, size=(1920, 1080), batch
     out = os.path.join(work, "flags_out")
     flags = [*FLAGS_ON, "--stripes-batch-cal"]
     metrics.reset()
+    metrics.enable(device=device)
     reset_launches()
-    secs, _ = convert_cli(clip, out, device, *flags)
+    try:
+        secs, _ = convert_cli(clip, out, device, *flags)
+    finally:
+        metrics.disable()
     launches = read_launches()
-    stages = metrics.snapshot()["stage_seconds"]
+    spans = metrics.totals()
     files = dng_files(out)
     check(len(files) == frames, f"flags-on: {frames} DNGs (got {len(files)})")
-    want = math.ceil(frames / batch_size) if device.startswith("cuda") else 0
+    n_batches = math.ceil(frames / batch_size)
+    for name in ("fetch", "decode", "process", "finish"):
+        n = spans.get(name, {}).get("count", 0)
+        check(n == n_batches, f"flags-on: {n_batches} {name} spans (got {n})")
+    want = n_batches if device.startswith("cuda") else 0
     for name, n in launches.items():
         expect = want if name in ("unpack", "chroma_smooth") else 0
         check(n == expect, f"flags-on: {name} kernel launches {n} == {expect}")
@@ -2447,12 +2455,18 @@ def breakdown(work, card, frames):
             shutil.rmtree(out, ignore_errors=True)
             metrics.reset()
             if run != "profiled":
-                with preview_dev_mode(mode):
-                    secs, _ = convert_cli(clip, out, "cuda", *flags)
-                stages = metrics.snapshot()["stage_seconds"]
+                metrics.enable(device=True)
+                try:
+                    with preview_dev_mode(mode):
+                        secs, _ = convert_cli(clip, out, "cuda", *flags)
+                finally:
+                    metrics.disable()
+                spans = metrics.totals()
                 print(f"{label} convert {w}x{h}, {frames} frames, {run}: {secs:.3f} s, "
-                      f"{frames / secs:.1f} f/s; stages (s, overlapping) "
-                      + ", ".join(f"{k} {v:.3f}" for k, v in sorted(stages.items()))
+                      f"{frames / secs:.1f} f/s; spans (host s, overlapping; device s) "
+                      + ", ".join(f"{k} {v['host_ms'] / 1e3:.3f}"
+                                  + ("" if v["device_ms"] is None else f"/{v['device_ms'] / 1e3:.3f}")
+                                  for k, v in sorted(spans.items()) if "." not in k or k.startswith("recon."))
                       + f" [{card}]")
                 continue
             with preview_dev_mode(mode):

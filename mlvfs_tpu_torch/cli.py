@@ -56,7 +56,12 @@ def _add_processing_flags(p: argparse.ArgumentParser):
         action="store_true",
         help="Write lossless-compressed (LJ92) DNGs instead of uncompressed",
     )
-    p.add_argument("-v", "--verbose", action="store_true", help="Per-stage timing report + debug logs")
+    p.add_argument(
+        "-v", "--verbose", action="store_true",
+        help="Trace the conversion (spans of each take, batch and reconstruction stage, with "
+             "device times on a card), print the spans' report and the counters after it, "
+             "and log at debug level",
+    )
     p.add_argument("--devices", type=int, default=0, help="Shard frame batches over N devices (not ported yet)")
     p.add_argument("--resume", action="store_true", help="Skip frames whose DNG already exists")
     p.add_argument("--device", default="cuda", help="Torch device of the batch pipeline: cuda[:N] or cpu")
@@ -103,13 +108,12 @@ def _iter_clips(path: str):
 
 def cmd_convert(args) -> int:
     from .pipeline.convert import convert_clip
-    from .utils.metrics import trace
+    from .utils import metrics
 
-    if args.verbose:
-        from .utils import log as _log
-
-        _log.setLevel("DEBUG")
     config = config_from_args(args)
+    if args.verbose:
+        metrics.log.setLevel("DEBUG")
+        metrics.enable(device=config.device)
     if args.devices > 1:
         print(
             f"error: --devices {args.devices} (multi-GPU batches) is not ported to "
@@ -135,7 +139,7 @@ def cmd_convert(args) -> int:
             return 1
         print(f"converting {base} -> {outdir}")
         try:
-            with trace("convert"):
+            with metrics.trace("convert"):
                 paths = convert_clip(clip_path, outdir, config)
         except OSError as e:
             print(f"error: failed converting {base}: {e}", file=sys.stderr)
@@ -144,9 +148,7 @@ def cmd_convert(args) -> int:
     dt = time.time() - t0
     print(f"done: {total_frames} frames in {dt:.2f}s ({total_frames / max(dt, 1e-9):.1f} fps)")
     if args.verbose:
-        from .utils import metrics
-
-        print("per-stage breakdown:")
+        print("spans and counters:")
         print(metrics.report())
     return 0
 

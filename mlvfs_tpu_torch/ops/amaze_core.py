@@ -50,6 +50,7 @@ import os
 import torch
 
 from .. import _build
+from ..utils import metrics
 from .evmath import fma
 
 # Launches of kernel #8 by amaze_demosaic: one per call that runs the
@@ -600,6 +601,7 @@ def pallas_mode() -> str:
     return "split" if os.environ.get(MODE_ENV, "split") == "split" else "mega"
 
 
+@metrics.traced("amaze", metrics.DEVICE)
 def amaze_demosaic(raw):
     """Demosaic a batch (B, H, W) float32 RGGB mosaics (0..65535 scale) →
     (R, G, B), each (B, H, W) float32.

@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from .. import _build
+from ..utils import metrics
 from .alias import shift
 from .dualiso_analysis_dev import tdiv
 from .luts import EV_RESOLUTION
@@ -141,6 +142,7 @@ def _edge_pick_cuda(evgray, EW_a, EW_b, s, restricted, direct_per_row=DIRECT_PER
     return out
 
 
+@metrics.traced("edge_pick", metrics.DEVICE)
 def edge_pick(evgray, EW_a, EW_b, s, restricted):
     """The picked EV-index plane of a batch: (B, H, W) int32 EV planes of the
     grayscale and of the 'a' and 'b' taps, the (B, H) int32 row signs and the

@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from ..utils import metrics
 from .unpack import to_int16_bits
 
 # Launches of the CUDA kernel by apply_preview, for showing that a run went
@@ -76,7 +77,8 @@ def green_phase_histograms(imgs: torch.Tensor, white: int):
         # reference count semantics: (w - off) // 4 per row (hist->count)
         counts[q] = len(ys_q) * ((w - off_q) // 4)
     sizes = [s.shape[1] for s in sample_sets]
-    host = torch.cat(sample_sets, 1).cpu().numpy().view(np.uint16)
+    with metrics.sync("preview_samples"):
+        host = torch.cat(sample_sets, 1).cpu().numpy().view(np.uint16)
     hists = np.zeros((b, 4, white + 1), np.int32)
     start = 0
     for q, n in enumerate(sizes):
@@ -367,4 +369,7 @@ def hdr_preview_batch(imgs: torch.Tensor, fh, cal):
 
     converted = apply_preview(imgs, a, bb, shadow, drs, black, white)
     out = torch.where(keep, converted, imgs)
-    return out, (ok.cpu().numpy() if isinstance(ok, torch.Tensor) else ok)
+    if isinstance(ok, torch.Tensor):
+        with metrics.sync("preview_ok"):
+            ok = ok.cpu().numpy()
+    return out, ok

@@ -22,6 +22,7 @@ import torch
 
 from . import evmath
 from .evmath import fma
+from ..utils import metrics
 from .pixels import wrap32
 
 RANSAC_STEPS = 3000  # candidate gains 2**-(0.002 i), i < 3000 (hdr.c:749-773)
@@ -244,6 +245,7 @@ def decide_batch(is_hdr, okf, ibf, wd_w, mok, a_dev, b_dev, wd_dev, hh: int, bla
     return ok, row_bright, s, a, b20, wd, ce, ovr, white20s
 
 
+@metrics.traced("dualiso.analysis", metrics.DEVICE)
 def analyze_batch(imgs, is_hdr, y_off: int, hh: int, black: int):
     """Field, white and exposure analysis plus the conversion decisions of a
     batch (B, H, W) on its device; nothing is read back here."""

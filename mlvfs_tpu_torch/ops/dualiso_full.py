@@ -46,6 +46,7 @@ from .dualiso_analysis_dev import tdiv, u16
 from .evmath import fma
 from .luts import EV_RESOLUTION, ev2raw_lut20, fullres_curve, raw2ev_lut20
 from .unpack import to_int16_bits
+from ..utils import metrics
 
 FULLRES_THR = 0.8
 ALIAS_MAP_MAX = alias_ops.ALIAS_MAP_MAX
@@ -59,6 +60,7 @@ def _grid(h: int, w: int, device):
 # ------------------------------------------------------------------ checks
 
 
+@metrics.traced("dualiso.hdr_check", metrics.DEVICE)
 def hdr_check_batch(imgs: torch.Tensor, black: int, white: int) -> torch.Tensor:
     """Quick interlaced-exposure detector (hdr_check, hdr.c:407-439) of a batch
     (B, H, W) int16 (u16 bits): (B,) bool on the batch's device. The mean
@@ -199,6 +201,7 @@ def white_ev_of(black20: int, white20: int) -> int:
     return int(round(math.log2(1 + max(white20 / 64.0 - black20 / 64.0, 0)) * EV_RESOLUTION))
 
 
+@metrics.traced("recon", metrics.DEVICE)
 def reconstruct_batch(imgs, row_bright, s, a, b20, white_darkened, corr_ev, overlap, *,
                       black20: int, white20: int, interp_method: int, use_fullres: bool,
                       use_alias: bool, cs_method: int, exact_luts: bool) -> torch.Tensor:
@@ -236,85 +239,91 @@ def reconstruct_batch(imgs, row_bright, s, a, b20, white_darkened, corr_ev, over
     def per_frame(v):
         return v[:, None, None]
 
-    # promote to 20 bits (hdr.c:825-837)
-    raw = (u16(imgs) << 6) & 0xFFFFF
+    with metrics.span("recon.match", metrics.DEVICE):
+        # promote to 20 bits (hdr.c:825-837)
+        raw = (u16(imgs) << 6) & 0xFFFFF
 
-    # exposure matching apply (hdr.c:783-809)
-    pf = raw.to(torch.float32)
-    rb = row_bright[:, :, None]
-    av, bv = per_frame(a.to(torch.float32)), per_frame(b20.to(torch.float32))
-    darkened = fma(bv, av, fma(pf - black20, av, float(black20)))
-    lifted = fma(bv, av, pf - bv)
-    adj = torch.clamp(torch.trunc(torch.where(rb, darkened, lifted)), 0, 0xFFFFF).to(torch.int32)
-    raw = torch.where(raw == 0, 0, adj)
+        # exposure matching apply (hdr.c:783-809)
+        pf = raw.to(torch.float32)
+        rb = row_bright[:, :, None]
+        av, bv = per_frame(a.to(torch.float32)), per_frame(b20.to(torch.float32))
+        darkened = fma(bv, av, fma(pf - black20, av, float(black20)))
+        lifted = fma(bv, av, pf - bv)
+        adj = torch.clamp(torch.trunc(torch.where(rb, darkened, lifted)), 0, 0xFFFFF).to(torch.int32)
+        raw = torch.where(raw == 0, 0, adj)
 
-    wd = white_darkened.to(torch.int32)
-    if interp_method == 0:
-        dark, bright = amaze_edge_interpolate(raw, ev2raw_at, row_bright, s, ev_of, frcurve_of, wd,
-                                              black20=black20)
-        dark, bright = _apply_borders(raw, dark, bright, row_bright)
-    else:
-        white_row = torch.where(row_bright, white20, wd[:, None]).to(torch.int32)
-        dark, bright = _mean23_interpolate(raw, ev_of(raw), ev2raw_at, row_bright, s, ev_of(white_row))
+    with metrics.span("recon.interp", metrics.DEVICE):
+        wd = white_darkened.to(torch.int32)
+        if interp_method == 0:
+            dark, bright = amaze_edge_interpolate(raw, ev2raw_at, row_bright, s, ev_of, frcurve_of, wd,
+                                                  black20=black20)
+            dark, bright = _apply_borders(raw, dark, bright, row_bright)
+        else:
+            white_row = torch.where(row_bright, white20, wd[:, None]).to(torch.int32)
+            dark, bright = _mean23_interpolate(raw, ev_of(raw), ev2raw_at, row_bright, s, ev_of(white_row))
 
-    # full-res reconstruction (hdr.c:1355-1380)
-    wd3 = per_frame(wd)
-    if use_fullres:
-        fullres = torch.where(rb, torch.where(bright < wd3, bright, torch.maximum(bright, dark)), dark)
-    else:
-        fullres = torch.zeros_like(raw)
+    with metrics.span("recon.blend", metrics.DEVICE):
+        # full-res reconstruction (hdr.c:1355-1380)
+        wd3 = per_frame(wd)
+        if use_fullres:
+            fullres = torch.where(rb, torch.where(bright < wd3, bright, torch.maximum(bright, dark)), dark)
+        else:
+            fullres = torch.zeros_like(raw)
 
-    # half-res blend (mix_images, hdr.c:1560-1611)
-    max_ev = evmath.log2_f32(torch.tensor(float(white20 // 64 - black20 // 64)))  # a host scalar
-    ov = per_frame(overlap.to(torch.float32))
-    bright_ev = ev_of(bright)
-    dark_ev = ev_of(dark)
-    i_f = (bright & 0xFFFFF).to(torch.float32)
-    evb = evmath.log2_add(torch.clamp(i_f / 64.0 - black20 / 64.0, min=1.0),
-                          per_frame(corr_ev.to(torch.float32)))
-    t = torch.minimum(torch.clamp(evb - (max_ev - ov), min=0.0), ov)
-    cmix = -evmath.cos_f32(t * float(np.float32(math.pi)) / ov)
-    k = torch.clamp((cmix + 1) / 2, 0, 1)
-    mixed = torch.trunc(fma(bright_ev.to(torch.float32), 1 - k, dark_ev.to(torch.float32) * k)).to(torch.int32)
-    halfres = ev2raw_at(mixed)
+        # half-res blend (mix_images, hdr.c:1560-1611)
+        max_ev = evmath.log2_f32(torch.tensor(float(white20 // 64 - black20 // 64)))  # a host scalar
+        ov = per_frame(overlap.to(torch.float32))
+        bright_ev = ev_of(bright)
+        dark_ev = ev_of(dark)
+        i_f = (bright & 0xFFFFF).to(torch.float32)
+        evb = evmath.log2_add(torch.clamp(i_f / 64.0 - black20 / 64.0, min=1.0),
+                              per_frame(corr_ev.to(torch.float32)))
+        t = torch.minimum(torch.clamp(evb - (max_ev - ov), min=0.0), ov)
+        cmix = -evmath.cos_f32(t * float(np.float32(math.pi)) / ov)
+        k = torch.clamp((cmix + 1) / 2, 0, 1)
+        mixed = torch.trunc(fma(bright_ev.to(torch.float32), 1 - k, dark_ev.to(torch.float32) * k)).to(torch.int32)
+        halfres = ev2raw_at(mixed)
 
-    if cs_method:
-        # the 20-bit chroma smooth (hdr.c:1488-1500) always uses the tables
-        from .chroma_smooth import chroma_smooth_20
+    with metrics.span("recon.chroma20", metrics.DEVICE):
+        if cs_method:
+            # the 20-bit chroma smooth (hdr.c:1488-1500) always uses the tables
+            from .chroma_smooth import chroma_smooth_20
 
-        fullres_smooth = chroma_smooth_20(fullres, cs_method, lut, inv) if use_fullres else fullres
-        halfres_smooth = chroma_smooth_20(halfres, cs_method, lut, inv)
-    else:
-        fullres_smooth, halfres_smooth = fullres, halfres
+            fullres_smooth = chroma_smooth_20(fullres, cs_method, lut, inv) if use_fullres else fullres
+            halfres_smooth = chroma_smooth_20(halfres, cs_method, lut, inv)
+        else:
+            fullres_smooth, halfres_smooth = fullres, halfres
 
-    # each EV plane once (without smoothing the full-res planes are one)
-    f = frcurve_of(bright)
-    hs_ev = ev_of(halfres_smooth)
-    fs_ev = ev_of(fullres_smooth)
-    f_ev = fs_ev if fullres_smooth is fullres else ev_of(fullres)
-    alias = _build_alias_map(fullres_smooth, halfres_smooth, fs_ev, hs_ev, f) if use_alias else None
+    with metrics.span("recon.alias", metrics.DEVICE):
+        # each EV plane once (without smoothing the full-res planes are one)
+        f = frcurve_of(bright)
+        hs_ev = ev_of(halfres_smooth)
+        fs_ev = ev_of(fullres_smooth)
+        f_ev = fs_ev if fullres_smooth is fullres else ev_of(fullres)
+        alias = _build_alias_map(fullres_smooth, halfres_smooth, fs_ev, hs_ev, f) if use_alias else None
 
-    over = torch.where((bright >= wd3) | (dark >= white20), 100, 0).to(torch.int32)
-    over = _blur_overexposed(over)
+    with metrics.span("recon.final", metrics.DEVICE):
+        over = torch.where((bright >= wd3) | (dark >= white20), 100, 0).to(torch.int32)
+        over = _blur_overexposed(over)
 
-    # final blend (hdr.c:1663-1758)
-    hrev = hs_ev.to(torch.float32)
-    frev = f_ev.to(torch.float32)
-    frsev = fs_ev.to(torch.float32)
-    ovf = torch.clamp(over.to(torch.float32) / 200.0, 0, 1)
-    c = torch.maximum(torch.clamp(alias.to(torch.float32) / ALIAS_MAP_MAX, 0, 1), ovf) if use_alias else ovf
-    noisy = torch.maximum(ovf, 1 - f)
-    f = torch.maximum(f, c)
-    fev = fma(noisy, frsev, (1 - noisy) * frev)
-    sig = (dark + bright) // 2
-    f = torch.clamp(torch.minimum(f, (sig - black20).to(torch.float32) / (4 * DARK_NOISE20)), min=0.0)
-    output = torch.trunc(fma(hrev, 1 - f, fev * f)).to(torch.int32)
-    output = torch.clamp(output, -10 * EV_RESOLUTION, 14 * EV_RESOLUTION - 1)
-    final20 = ev2raw_at(output)
+        # final blend (hdr.c:1663-1758)
+        hrev = hs_ev.to(torch.float32)
+        frev = f_ev.to(torch.float32)
+        frsev = fs_ev.to(torch.float32)
+        ovf = torch.clamp(over.to(torch.float32) / 200.0, 0, 1)
+        c = torch.maximum(torch.clamp(alias.to(torch.float32) / ALIAS_MAP_MAX, 0, 1), ovf) if use_alias else ovf
+        noisy = torch.maximum(ovf, 1 - f)
+        f = torch.maximum(f, c)
+        fev = fma(noisy, frsev, (1 - noisy) * frev)
+        sig = (dark + bright) // 2
+        f = torch.clamp(torch.minimum(f, (sig - black20).to(torch.float32) / (4 * DARK_NOISE20)), min=0.0)
+        output = torch.trunc(fma(hrev, 1 - f, fev * f)).to(torch.int32)
+        output = torch.clamp(output, -10 * EV_RESOLUTION, 14 * EV_RESOLUTION - 1)
+        final20 = ev2raw_at(output)
 
-    # 20 → 16 bit; the reference's dither source is never seeded, so its
-    # noise is all zero: out = trunc(v/16 + 0.5) (hdr.c:242,1760-1772)
-    return to_int16_bits(torch.clamp((final20 + 8) >> 4, 0, 65535))
+        # 20 → 16 bit; the reference's dither source is never seeded, so its
+        # noise is all zero: out = trunc(v/16 + 0.5) (hdr.c:242,1760-1772)
+        return to_int16_bits(torch.clamp((final20 + 8) >> 4, 0, 65535))
 
 
 # ------------------------------------------------------------ orchestrator
@@ -405,10 +414,15 @@ def cr2hdr20_batch(imgs: torch.Tensor, fh, cfg, cal):
         bp = None
         if cal is not None and cal.bad_pixels_done:
             bp = cal.bad_pixel_list
-        elif bool(is_hdr[0]):
-            bp = pixel_ops.detect_bad_pixels(fixed[0].cpu().numpy().view(np.uint16), w, h, black,
-                                             aggressive=(cfg.fix_bad_pixels == 2),
-                                             crop_x=crop_x, crop_y=crop_y)
+        else:
+            with metrics.sync("hdr0"):
+                frame0_hdr = bool(is_hdr[0])
+            if frame0_hdr:
+                with metrics.sync("frame"):
+                    frame0 = fixed[0].cpu().numpy().view(np.uint16)
+                bp = pixel_ops.detect_bad_pixels(frame0, w, h, black,
+                                                 aggressive=(cfg.fix_bad_pixels == 2),
+                                                 crop_x=crop_x, crop_y=crop_y)
             if cal is not None:
                 cal.bad_pixel_list = bp
                 cal.bad_pixels_done = True
@@ -419,8 +433,11 @@ def cr2hdr20_batch(imgs: torch.Tensor, fh, cfg, cal):
 
     cached_rggb = getattr(cal, "dual_iso_rggb", None) if cal is not None else None
     if cfg.exact_luts:
-        ok, y_off, hh, scalars, white20 = _analyze_exact(imgs, is_hdr.cpu().numpy(), cached_rggb,
-                                                         black, cal)
+        with metrics.sync("hdr"):
+            is_hdr_host = is_hdr.cpu().numpy()
+        ok, y_off, hh, scalars, white20 = _analyze_exact(imgs, is_hdr_host, cached_rggb, black, cal)
+        metrics.count("dualiso.frames_seen", b)
+        metrics.count("dualiso.frames_converted", int(ok.sum()))
         if not ok.any():
             return imgs, ok
         row_bright, s_arr, a_arr, b20_arr, wd_arr, ce_arr, ov_arr = (
@@ -428,7 +445,11 @@ def cr2hdr20_batch(imgs: torch.Tensor, fh, cfg, cal):
     else:
         from . import dualiso_analysis_dev as analysis_dev
 
-        rggb = cached_rggb if cached_rggb is not None else bool(analysis_dev.rggb_stat(imgs[0]))
+        if cached_rggb is not None:
+            rggb = cached_rggb
+        else:
+            with metrics.sync("rggb"):
+                rggb = bool(analysis_dev.rggb_stat(imgs[0]))
         if cal is not None:
             cal.dual_iso_rggb = rggb
         y_off = 0 if rggb else 1
@@ -436,8 +457,11 @@ def cr2hdr20_batch(imgs: torch.Tensor, fh, cfg, cal):
         (ok_t, row_bright, s_arr, a_arr, b20_arr, wd_arr, ce_arr, ov_arr,
          white20s) = analysis_dev.analyze_batch(imgs, is_hdr, y_off, hh, black)
         # the batch's one readback: which frames convert, and their whites
-        host = torch.stack([ok_t.to(torch.int32), white20s]).cpu().numpy()
+        with metrics.sync("analysis"):
+            host = torch.stack([ok_t.to(torch.int32), white20s]).cpu().numpy()
         ok, w20 = host[0].astype(bool), host[1]
+        metrics.count("dualiso.frames_seen", b)
+        metrics.count("dualiso.frames_converted", int(ok.sum()))
         if not ok.any():
             return imgs, ok
         white20 = getattr(cal, "dual_iso_white20", None) if cal is not None else None

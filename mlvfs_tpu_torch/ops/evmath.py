@@ -24,8 +24,12 @@ import math
 import numpy as np
 import torch
 
+from ..utils import metrics
 from .dualiso import fma_f32
 from .luts import EV_RESOLUTION
+
+# every transform below is one ``ev`` span, the outermost call only
+_ev = metrics.traced("ev", metrics.DEVICE, outermost=True)
 
 INV_LN2 = float(np.float32(1.0) / np.float32(math.log(2.0)))  # XLA's folded 1/log(2)
 LN2 = float(np.float32(math.log(2.0)))
@@ -46,6 +50,7 @@ _EXP_P = [float(np.float32(v)) for v in (
 _MIN_NORM = float(np.frombuffer(np.uint32(0x00800000).tobytes(), np.float32)[0])
 
 
+@_ev
 def fma(x, y, z) -> torch.Tensor:
     """x * y + z rounded once to float32, broadcasting; any operand may be a
     Python float (taken as float32, and kept a 0-dim host tensor, so a call on
@@ -54,6 +59,7 @@ def fma(x, y, z) -> torch.Tensor:
                      torch.tensor(t, dtype=torch.float32) for t in (x, y, z)))
 
 
+@_ev
 def log_f32(x: torch.Tensor) -> torch.Tensor:
     """Natural log of a float32 tensor, bit for bit as XLA's CPU backend
     computes it: x = m * 2^e with m in [sqrt(1/2), sqrt(2)), a degree-8
@@ -83,6 +89,7 @@ def log_f32(x: torch.Tensor) -> torch.Tensor:
     return torch.where((x < 0) | torch.isnan(x), torch.nan, out)
 
 
+@_ev
 def exp_f32(x: torch.Tensor) -> torch.Tensor:
     """exp of a float32 tensor, bit for bit as XLA's CPU backend computes it
     for x in about [-87, 88] (2^n a normal float): n = floor(x / ln 2 + 1/2),
@@ -101,27 +108,32 @@ def exp_f32(x: torch.Tensor) -> torch.Tensor:
     return y * scale
 
 
+@_ev
 def cos_f32(x: torch.Tensor) -> torch.Tensor:
     """cos of a float32 tensor, taken in float64 and rounded once."""
     return torch.cos(x.double()).float()
 
 
+@_ev
 def log2_f32(x: torch.Tensor) -> torch.Tensor:
     """jnp.log2 as XLA lowers it: log(x) * f32(1/ln 2), two roundings."""
     return log_f32(x) * INV_LN2
 
 
+@_ev
 def log2_add(x: torch.Tensor, c) -> torch.Tensor:
     """jnp.log2(x) + c, the multiply contracted into the add (as XLA does);
     ``c`` a float or a float32 tensor that broadcasts to ``x``."""
     return fma(log_f32(x), INV_LN2, c)
 
 
+@_ev
 def exp2_f32(x: torch.Tensor) -> torch.Tensor:
     """jnp.exp2 as XLA lowers it: exp(x * f32(ln 2))."""
     return exp_f32(x * LN2)
 
 
+@_ev
 def raw2ev20(i: torch.Tensor, black20: int) -> torch.Tensor:
     """round(log2(1 + |i/64 - black/64|) * EVR) * sign (hdr.c:843-850), int32."""
     signal = torch.clamp(i.to(torch.float32) / 64.0 - black20 / 64.0, min=-1023.0)
@@ -129,6 +141,7 @@ def raw2ev20(i: torch.Tensor, black20: int) -> torch.Tensor:
     return torch.where(signal > 0, mag, -mag).to(torch.int32)
 
 
+@_ev
 def ev2raw20(ev: torch.Tensor, black20: int, white20: int, white_ev: int) -> torch.Tensor:
     """Inverse transform with the black offset and the white clamp
     (hdr.c:852-865), int32. ``white_ev`` is raw2ev(white20), a host scalar."""
@@ -145,6 +158,7 @@ def ev2raw20(ev: torch.Tensor, black20: int, white20: int, white_ev: int) -> tor
     return out.to(torch.int32)
 
 
+@_ev
 def fullres_weight(i: torch.Tensor, black20: int) -> torch.Tensor:
     """Fullres mixing curve (build_fullres_curve, hdr.c:890-913), float32."""
     fullres_start, fullres_transition = 4.0, 4.0

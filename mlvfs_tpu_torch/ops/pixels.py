@@ -32,6 +32,7 @@ import os
 import numpy as np
 import torch
 
+from ..utils import metrics
 from .luts import EV_RESOLUTION, ev2raw_lut, raw2ev_lut
 from .unpack import to_int16_bits
 
@@ -72,6 +73,7 @@ def load_focus_pixel_map(camera_id: int, rawi_width: int, rawi_height: int, fpm_
     return None
 
 
+@metrics.traced("calibrate")
 def detect_bad_pixels(
     frame: np.ndarray,
     width: int,

@@ -22,6 +22,7 @@ import functools
 import numpy as np
 import torch
 
+from ..utils import metrics
 from .evmath import exp2_f32, fma, log2_f32
 from .unpack import to_int16_bits
 
@@ -29,6 +30,7 @@ FIXP_ONE = 65536
 FIXP_RANGE = 65536
 
 
+@metrics.traced("calibrate")
 def compute_correction(
     frame,
     black: int,
@@ -119,6 +121,7 @@ _BATCH_COMBOS = [
 ]
 
 
+@metrics.traced("calibrate")
 def calibrate_batch_device(imgs: torch.Tensor, black: int, white: int, frame_size_bytes: int):
     """Stripe gains from a whole batch (B, H, W) int16 (u16 bits) on its
     device: the reference's ``calibrate_batch_device``

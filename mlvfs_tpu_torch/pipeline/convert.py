@@ -43,6 +43,7 @@ import torch
 from ..emit import dng as dng_emit
 from ..format.reader import MLVClip
 from ..ops import unpack as unpack_ops
+from ..utils import metrics
 from . import kernels
 from .config import ProcessingConfig
 
@@ -233,12 +234,13 @@ class ClipConverter:
         """Host side of decode: gather/decode + async device transfer.
         Runs on the prefetch thread (stream.BatchPrefetcher)."""
         comp = self.fh0.compression
-        if comp == "none":
-            return self._upload(self._gather_packed_batch(indices))
-        if comp == "lzma":
-            return self._upload(self._lzma_batch_host(indices))
-        if comp == "lj92":
-            return self._upload(self._lj92_batch_host(indices))
+        with metrics.span("fetch", batch=indices[0]):
+            if comp == "none":
+                return self._upload(self._gather_packed_batch(indices))
+            if comp == "lzma":
+                return self._upload(self._lzma_batch_host(indices))
+            if comp == "lj92":
+                return self._upload(self._lj92_batch_host(indices))
         raise ValueError(f"unknown compression {comp}")
 
     # ------------------------------------------------------------------ #
@@ -337,7 +339,6 @@ class ClipConverter:
             basename = _mlv_basename(clip.path)
         frames = list(range(clip.frame_count)) if frames is None else list(frames)
         paths = []
-        from ..utils import StageTimer, metrics
         from .stream import BatchPrefetcher
 
         if cfg.resume:
@@ -357,16 +358,18 @@ class ClipConverter:
         pending = collections.deque()
         done = 0
         for indices, fetched in prefetcher:
-            with StageTimer("decode"):
+            with metrics.span("decode", metrics.DEVICE, batch=indices[0]):
                 imgs = self.decode_batch(indices, fetched)
-            with StageTimer("process"):
+            with metrics.span("process", metrics.DEVICE, batch=indices[0]):
                 imgs, info = self.process_batch(imgs, indices)
+            metrics.settle()
             computed = self._computed()
             # readback + header synthesis + file IO run on the write pool so
             # the device->host transfer of batch N overlaps batch N+1's
             # decode/process
             if len(pending) >= _MAX_PENDING_WRITES:
-                pending.popleft().result()
+                with metrics.span("wait.writes", metrics.SYNC):
+                    pending.popleft().result()
             pending.append(
                 self._write_pool.submit(
                     self._finish_batch, outdir, basename, indices, imgs, info, computed
@@ -379,12 +382,14 @@ class ClipConverter:
             done += len(indices)
             if progress:
                 progress(done, len(frames))
-        while pending:
-            pending.popleft().result()
+        with metrics.span("take.drain", metrics.SYNC):
+            while pending:
+                pending.popleft().result()
         if self._calibration is not None and cfg.use_sidecar_idx:
             from . import calibration
 
-            calibration.save_from(self._calibration, clip.path, clip.guid, cfg)
+            with metrics.span("take.save_cal"):
+                calibration.save_from(self._calibration, clip.path, clip.guid, cfg)
         if cfg.export_all:
             paths.extend(self.write_sidecars(outdir, basename))
         return sorted(paths)
@@ -410,7 +415,8 @@ class ClipConverter:
         if clip.frame_count:
             frame_ids = gif_frame_ids(clip.frame_count)
             imgs = self.decode_batch(frame_ids)
-            (batch,) = self._to_host([imgs], self._computed())
+            with metrics.sync("gif"):
+                (batch,) = self._to_host([imgs], self._computed())
             batch = batch.view("<u2")
             decoded = {i: batch[bi] for bi, i in enumerate(frame_ids)}
             gif_bytes = build_gif(clip, decode_fn=decoded.__getitem__)
@@ -425,29 +431,38 @@ class ClipConverter:
     def _finish_batch(self, outdir, basename, indices, imgs, info, computed):
         """Write-pool task: pull the batch to host and write its DNGs through
         the per-clip header template."""
-        from ..utils import StageTimer, metrics
+        with metrics.span("finish", batch=indices[0]):
+            cfg = self.config
+            medians = info.pop("deflicker_medians", None)
+            with metrics.span("finish.readback", metrics.SYNC):
+                host = self._to_host([imgs] if medians is None else [imgs, medians], computed)
+            imgs_np = host[0].view("<u2")
+            if medians is not None:
+                info["exposure_bias"] = kernels.exposure_bias(
+                    host[1], cfg.deflicker, self.fh0.raw_info.black_level
+                )
+            metrics.count("frames", len(indices))
+            metrics.count("bytes_out", int(imgs_np.nbytes))
+            with metrics.span("finish.render"):
+                dngs = self._render_batch(outdir, basename, indices, imgs_np, info)
+            with metrics.span("finish.write"):
+                for path, header, payload in dngs:
+                    self._write_dng(path, header, payload)
 
-        cfg = self.config
-        medians = info.pop("deflicker_medians", None)
-        with StageTimer("readback"):
-            host = self._to_host([imgs] if medians is None else [imgs, medians], computed)
-        imgs_np = host[0].view("<u2")
-        if medians is not None:
-            info["exposure_bias"] = kernels.exposure_bias(
-                host[1], cfg.deflicker, self.fh0.raw_info.black_level
-            )
-        metrics.count("frames", len(indices))
-        metrics.count("bytes_out", int(imgs_np.nbytes))
+    def _render_batch(self, outdir, basename, indices, imgs_np, info):
+        """[(path, header, payload)] of a batch read back: the headers from
+        the per-clip template, the payloads LJ92-encoded with --compress-dng."""
         strips = None
-        if cfg.compress == "lj92":
+        if self.config.compress == "lj92":
             # one native call per batch, frames fanned over hardware threads
             from ..codecs import lj92 as lj92_codec
 
-            with StageTimer("lj92_encode"):
+            with metrics.span("finish.encode"):
                 strips = lj92_codec.encode_batch(imgs_np, ncomp=2, bits=16)
         compression = "lj92" if strips is not None else "none"
         tpl = None
         tpl_ident = None
+        dngs = []
         for bi, i in enumerate(indices):
             fh = self.clip.frame_headers_shared(i)
             # template reuse by block identity: frame_headers_shared hands out
@@ -463,12 +478,13 @@ class ClipConverter:
                     fh, black_level=black, white_level=white, exposure_bias=bias,
                     strip_byte_count=len(strips[bi]),
                 )
-                self._write_dng(path, header, np.frombuffer(strips[bi], np.uint8))
+                dngs.append((path, header, np.frombuffer(strips[bi], np.uint8)))
             else:
                 header = tpl.render(
                     fh, black_level=black, white_level=white, exposure_bias=bias
                 )
-                self._write_dng(path, header, imgs_np[bi])
+                dngs.append((path, header, imgs_np[bi]))
+        return dngs
 
     @staticmethod
     def _info_fields(info, bi):
@@ -524,11 +540,21 @@ class ClipConverter:
 def convert_clip(mlv_path: str, outdir: str, config: ProcessingConfig = None, **kw):
     """One-shot conversion of a single clip."""
     config = config or ProcessingConfig()
-    # populate=True: a full conversion reads every frame, so prefault the
-    # chunk mappings in one kernel pass (MAP_POPULATE)
-    with MLVClip(mlv_path, use_sidecar=config.use_sidecar_idx, populate=True) as clip:
-        conv = ClipConverter(clip, config)
+    with metrics.take():
+        # populate=True: a full conversion reads every frame, so prefault the
+        # chunk mappings in one kernel pass (MAP_POPULATE)
+        with metrics.span("take.open"):
+            clip = MLVClip(mlv_path, use_sidecar=config.use_sidecar_idx, populate=True)
+        conv = None
         try:
+            with metrics.span("take.setup"):
+                conv = ClipConverter(clip, config)
             return conv.convert(outdir, **kw)
         finally:
-            conv.close()
+            with metrics.span("take.close"):
+                if conv is not None:
+                    conv.close()
+                clip.close()
+                # the take's mappings go with the last view into them, which
+                # the converter and the clip hold: release them here
+                del conv, clip

@@ -29,6 +29,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..utils import metrics
 from .config import ProcessingConfig
 
 
@@ -59,6 +60,7 @@ def calibration_from_reference(cal) -> ClipCalibration:
     return out
 
 
+@metrics.traced("calibrate")
 def calibrate_clip(fh, cfg: ProcessingConfig) -> ClipCalibration:
     """Static (data-independent) calibration: focus pixel map lookup."""
     cal = ClipCalibration()
@@ -82,7 +84,8 @@ def exposure_bias(medians: np.ndarray, target: int, black: int):
 
 def _host_frame(img) -> np.ndarray:
     """One (H, W) int16 device frame → host u16 (a once-per-clip readback)."""
-    return img.cpu().numpy().view(np.uint16)
+    with metrics.sync("frame"):
+        return img.cpu().numpy().view(np.uint16)
 
 
 def run_pipeline(imgs, fh, cfg: ProcessingConfig, cal: ClipCalibration, info: dict):
@@ -195,7 +198,8 @@ def run_pipeline(imgs, fh, cfg: ProcessingConfig, cal: ClipCalibration, info: di
                 g_dev, needed_dev = stripes_ops.calibrate_batch_device(
                     batch, info["black_level"], info["white_level"], int(ri.frame_size)
                 )
-                cal.stripes_gains, cal.stripes_needed = g_dev.cpu().numpy(), bool(needed_dev)
+                with metrics.sync("stripes"):
+                    cal.stripes_gains, cal.stripes_needed = g_dev.cpu().numpy(), bool(needed_dev)
             else:
                 # gains from the first processed frame only, under that
                 # frame's own levels (stripes.c:97-99, main.c:980-996); also

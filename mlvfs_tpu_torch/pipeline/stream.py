@@ -15,6 +15,8 @@ from __future__ import annotations
 
 import concurrent.futures
 
+from ..utils import metrics
+
 
 class BatchPrefetcher:
     """Iterator over (indices, fetched) pairs with ``depth`` batches in flight.
@@ -44,7 +46,9 @@ class BatchPrefetcher:
                 nxt = i + self._depth
                 if nxt < len(batches):
                     inflight.append(self._pool.submit(self._fetch, batches[nxt]))
-                yield idx, fut.result()
+                with metrics.span("wait.fetch", metrics.SYNC, batch=idx[0]):
+                    fetched = fut.result()
+                yield idx, fetched
         finally:
             for fut in inflight:
                 fut.cancel()

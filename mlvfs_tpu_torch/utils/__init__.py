@@ -1,1 +1,2 @@
-from .metrics import StageTimer, metrics, log  # noqa: F401
+from . import metrics  # noqa: F401
+from .metrics import log  # noqa: F401

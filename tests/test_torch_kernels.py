@@ -470,6 +470,50 @@ def test_alias_kernel_matches_plain():
 
 
 @pytest.mark.cuda
+def test_traced_convert_on_a_second_card(tmp_path, monkeypatch):
+    """``convert --device cuda:1 -v`` with cuda:0 current: every CUDA event,
+    the tracer's included, is recorded on a stream of the converting card,
+    every device span gets its device time, and the DNGs equal the
+    untraced conversion's."""
+    _need_card()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs a second CUDA card")
+    from mlvfs_tpu_torch.utils import metrics
+
+    seen = []
+
+    class Event(torch.cuda.Event):
+        def record(self, stream=None):
+            seen.append((stream or torch.cuda.current_stream()).device)
+            return super().record(stream)
+
+    monkeypatch.setattr(torch.cuda, "Event", Event)
+    torch.cuda.set_device(0)
+    src = tmp_path / "DI.MLV"
+    synth.write_mlv(str(src), width=640, height=192, frames=4, dual_iso=3)
+    cfg = ProcessingConfig(device="cuda:1", batch_size=2, dual_iso=2, hdr_interpolation_method=1)
+    trees = []
+    for traced in (False, True):
+        out = tmp_path / f"out{int(traced)}"
+        metrics.reset()
+        if traced:
+            metrics.enable(device=cfg.device)
+        try:
+            convert_clip(str(src), str(out), cfg)
+        finally:
+            spans = metrics.spans()
+            metrics.disable()
+            metrics.reset()
+        trees.append({n: (out / n).read_bytes() for n in sorted(os.listdir(out))})
+    assert trees[0] == trees[1] and len(trees[0]) == 4
+    device = [s for s in spans if s.kind == metrics.DEVICE]
+    assert {"decode", "process", "recon", "ev"} <= {s.name for s in device}
+    assert all(s.device_ms is not None and s.device_ms >= 0 for s in device)
+    assert seen and set(seen) == {torch.device("cuda", 1)}
+    assert torch.cuda.current_device() == 0
+
+
+@pytest.mark.cuda
 def test_dual_iso_convert_on_card_matches_cpu(tmp_path):
     """--dual-iso --mean23 with --bad-pix --cs2x2 --stripes on a clip whose
     third frame is single-ISO: kernel #7 launches once per batch that holds
