@@ -106,6 +106,13 @@ Phases (any failed check raises, and the script exits non-zero):
      device fit's (sorts + kernel), and two bounds: bytes, and the walk's
      chain of dependent loads (its steps on these frames times two loads
      at the card's L2 latency, measured by ``csrc/l2_chase_probe.cu``);
+  2k. the EV transforms' kernel (``csrc/evmath.cu``, which replaces no
+     Pallas kernel: the reference computes them in plain XLA), each entry on
+     its own at 1080p with B=16 against its plain twin on the card,
+     bit-equal (NaNs as NaN), one launch a call: raw2ev20, ev2raw20 and the
+     fullres curve over 20-bit inputs, log, log2, log2 + a per-frame c,
+     exp2, fma over three full planes and with per-frame x and y; each
+     call's time by CUDA events beside its byte bound and the twin's time;
   3. the default convert path, ``python -m mlvfs_tpu_torch convert CLIP -o
      OUT --device cuda`` through ``cli.main``: a 1920x1080 14-bit 5D Mark III
      clip (64 frames) whose DNG payloads must equal the synthesized frames,
@@ -116,7 +123,8 @@ Phases (any failed check raises, and the script exits non-zero):
      --stripes-batch-cal --bad-pix --device cuda``: a 1920x1080 14-bit 5D
      Mark III clip (48 frames) with a period-8 column gain and injected hot
      and cold pixels. The stripe and bad-pixel fixes must change pixels,
-     each kernel must run once per batch, the stripe gains (calibrated from
+     each kernel must run once per batch (the EV kernel for the batch
+     calibration, on the card only), the stripe gains (calibrated from
      the whole first batch on the card) must equal the port's CPU
      calibration of that batch, and the first 4 DNGs must be byte-identical
      to the port's own CPU conversion;
@@ -141,10 +149,10 @@ Phases (any failed check raises, and the script exits non-zero):
      on the first 8 frames of each decides on the card as on the CPU, with
      the same sums to the bit. Kernel #7
      must run once per batch (each holds a converted frame) and not at all
-     under ``--no-alias-map``; converted frames carry x4 levels, the others
-     their own. The first 2 DNGs are held against the port's CPU conversion
-     of them: headers and frames not converted byte-identical, converted
-     frames within PSNR 90 dB and 3 % of pixels;
+     under ``--no-alias-map``, the EV kernel (2k) on the card only;
+     converted frames carry x4 levels, the others their own. The first 2
+     DNGs must be byte-identical to the port's CPU conversion of them (the
+     PSNR and share of pixels that differ are printed beside);
   3f. ``convert CLIP --dual-iso`` (amaze-edge, the default interpolation)
      on the same two clips and flags as 3e: per batch (each holds a
      converted frame) kernels #6, #8 and #7 launch once and #10 five times;
@@ -175,7 +183,10 @@ calibration beside the whole-batch one on the card), and for each of the
 flags-on, ``--fix-pattern-noise``, ``--dual-iso-preview`` (device fit, then
 host fit), ``--dual-iso --mean23`` and ``--dual-iso`` programs two N-frame
 converts and one under torch.profiler (device busy share, device time by
-kernel).
+kernel). The full dual-ISO rows give the EV kernel's launches a call (0 in a
+package without it). With ``--package-root DIR`` it measures another
+checkout of the port (a parent unpacked by ``git archive``), so that both
+are run in one call.
 ``python3 chip_smoke.py --kernel-times [--package-root DIR]`` times only
 the unpack and chroma calls (phase 2's and 2b's inputs and the flags-on
 frames), by CUDA events and by device time, and the AMaZE demosaic in mega
@@ -224,8 +235,9 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     # no Pallas original: the reference fits in plain XLA (listed as such)
     "preview_fit": ("mlvfs_tpu_torch/csrc/dualiso_preview_fit.cu",
                     "mlvfs_tpu/ops/dualiso_preview_dev.py:67"),
+    "evmath": ("mlvfs_tpu_torch/csrc/evmath.cu", "mlvfs_tpu/ops/evmath.py:20"),
 }
-NO_PALLAS_ORIGINAL = {"preview_fit"}
+NO_PALLAS_ORIGINAL = {"preview_fit", "evmath"}
 DNG_HEADER = 65536
 # the card's published peaks (NVIDIA H100 SXM data sheet, at the 700 W limit):
 # HBM3 bandwidth, and int32 ALU operations: 132 SMs x 64 int32 lanes x
@@ -851,6 +863,91 @@ def preview_fit_vs_plain(card: str):
           f"{latency_ns:.1f} ns L2 latency by the pointer chase); kernel at {100 * chain_ms / kernel_ms:.1f} % "
           f"of the chain bound [{card}]")
     return (max_err, kernel_ms, plain_ms, bound_ms, bound_by), chain_ms
+
+
+EV_SHAPE = (16, 1080, 1920)  # a 1080p batch of 16
+
+
+def same_values(a, b) -> bool:
+    """Equal dtype and bits, float NaNs compared as NaN (payloads aside)."""
+    import torch
+
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype != torch.float32:
+        return torch.equal(a, b)
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(a[~nan].view(torch.int32), b[~nan].view(torch.int32))
+
+
+def ev_calls():
+    """The EV entries' calls at 1080p/B=16 on the card: [(label, entry name,
+    args, bytes each call must move)]: every 20-bit value's range for the
+    raw transforms, EVs of the tables' range, positive floats for the logs,
+    [-20, 20] for the exps, a per-frame (B, 1, 1) vector, full planes."""
+    import torch
+
+    from mlvfs_tpu_torch.ops import dualiso_full
+
+    gen = torch.Generator(device="cuda").manual_seed(15)
+
+    def floats(scale, shift=0.0, shape=EV_SHAPE):
+        return torch.rand(shape, generator=gen, device="cuda") * scale + shift
+
+    def ints(lo, hi):
+        return torch.randint(lo, hi, EV_SHAPE, generator=gen, device="cuda", dtype=torch.int32)
+
+    n = math.prod(EV_SHAPE)
+    black20, white20 = 2048 * 64, 15000 * 64
+    raw, ev = ints(0, 1 << 20), ints(-10 * 32768, 14 * 32768)
+    pos, mid, frame = floats(65536.0), floats(40.0, -20.0), floats(1.0, shape=(EV_SHAPE[0], 1, 1))
+    planes = [floats(2.0, -1.0) for _ in range(3)]
+    return [
+        ("raw2ev20", "raw2ev20", (raw, black20), 8 * n),
+        ("ev2raw20", "ev2raw20", (ev, black20, white20, dualiso_full.white_ev_of(black20, white20)), 8 * n),
+        ("fullres_weight", "fullres_weight", (raw, black20), 8 * n),
+        ("log_f32", "log_f32", (pos,), 8 * n),
+        ("log2_f32", "log2_f32", (pos,), 8 * n),
+        ("log2_add, per-frame c", "log2_add", (pos, frame), 8 * n),
+        ("exp2_f32", "exp2_f32", (mid,), 8 * n),
+        ("fma, three full planes", "fma", tuple(planes), 16 * n),
+        ("fma, per-frame x and y", "fma", (frame, frame, planes[0]), 8 * n),
+    ]
+
+
+def ev_vs_plain(card: str):
+    """Phase 2k: each EV entry (csrc/evmath.cu, no Pallas original) on its
+    own at 1080p/B=16: bit-equal to its twin on the card (NaNs as NaN), one
+    launch a call; the call's time by CUDA events beside its byte bound and
+    the twin's time. Returns (max_abs_err over the calls, and ms, plain_ms,
+    bound_ms summed over them, "bytes")."""
+    import torch
+
+    from mlvfs_tpu_torch.ops import evmath
+
+    max_err = 0.0
+    totals = [0.0, 0.0, 0.0]
+    for label, name, args, moved in ev_calls():
+        fn, plain = getattr(evmath, name), getattr(evmath, name + "_plain")
+        bound_ms = moved / HBM_BYTES_PER_S * 1e3
+        before = evmath.KERNEL_LAUNCHES
+        got = fn(*args)
+        check(evmath.KERNEL_LAUNCHES == before + 1, f"EV {label}: one launch a call")
+        want = plain(*args)
+        diff = (got.double() - want.double()).abs()
+        diff = diff[~torch.isnan(diff)]  # NaN against NaN, or an infinity against itself
+        err = float(diff.max()) if diff.numel() else 0.0
+        max_err = max(max_err, err)
+        check(same_values(got, want), f"EV {label}: kernel == plain twin on the card, bit for bit "
+              f"(max err {err})")
+        ms = _median_ms(lambda: fn(*args))
+        plain_ms = _median_ms(lambda: plain(*args), reps=3, warmup=1)
+        print(f"EV {label} {'x'.join(map(str, EV_SHAPE))}: kernel {ms:.4f} ms by CUDA events, bound "
+              f"{bound_ms:.4f} ms (bytes: {moved / 1e6:.1f} MB), {100 * bound_ms / ms:.1f} % of it; the "
+              f"twin on the card {plain_ms:.4f} ms; bit-equal, max_abs_err {err} [{card}]")
+        for k, v in enumerate((ms, plain_ms, bound_ms)):
+            totals[k] += v
+    return (max_err, *totals, "bytes")
 
 
 def alias_ops(n_selected: int, n_pixels: int) -> int:
@@ -1673,11 +1770,13 @@ def _counters():
                                      dualiso, dualiso_preview_dev, patternnoise, patternnoise_fused,
                                      unpack)
 
+    from mlvfs_tpu_torch.ops import evmath
+
     modules = {"unpack": unpack, "chroma_smooth": chroma_smooth,
                "pn_blur_interleaved": patternnoise_fused, "pn_blur_split": patternnoise,
                "dualiso_preview": dualiso, "alias_filter": alias, "amaze_edge_pick": amaze_edge,
                "amaze_demosaic": amaze_core, "amaze_raster_passes": amaze_scans,
-               "preview_fit": dualiso_preview_dev}
+               "preview_fit": dualiso_preview_dev, "evmath": evmath}
     return {**{name: (module, "KERNEL_LAUNCHES") for name, module in modules.items()},
             "amaze_mega": (amaze_core, "MEGA_LAUNCHES"),
             "amaze_raster_frame": (amaze_scans, "FRAME_LAUNCHES")}
@@ -1830,6 +1929,9 @@ def flags_on_path(work, card, device="cuda", frames=48, size=(1920, 1080), batch
         check(n == n_batches, f"flags-on: {n_batches} {name} spans (got {n})")
     want = n_batches if device.startswith("cuda") else 0
     for name, n in launches.items():
+        if name == "evmath":  # the batch stripe calibration's log2 and fma, once a clip
+            check((n > 0) == device.startswith("cuda"), f"flags-on: EV kernel launches {n}, on the card only")
+            continue
         expect = want if name in ("unpack", "chroma_smooth") else 0
         check(n == expect, f"flags-on: {name} kernel launches {n} == {expect}")
 
@@ -1869,8 +1971,8 @@ def flags_on_path(work, card, device="cuda", frames=48, size=(1920, 1080), batch
         check(read(p) == read(q), f"flags-on {os.path.basename(p)}: {device} == cpu, byte for byte")
     mb = frames * (DNG_HEADER + w * h * 2) / 1e6
     print(f"convert 5D3 {w}x{h} 14-bit {' '.join(flags)}, {frames} frames, --device {device}: "
-          f"{secs:.3f} s, {frames / secs:.1f} f/s, {mb / secs:.1f} MB/s written; stages (s, "
-          f"overlapping) " + ", ".join(f"{k} {v:.3f}" for k, v in sorted(stages.items()))
+          f"{secs:.3f} s, {frames / secs:.1f} f/s, {mb / secs:.1f} MB/s written; spans (host s, "
+          f"overlapping) " + ", ".join(f"{k} {v['host_ms'] / 1e3:.3f}" for k, v in sorted(spans.items()))
           + f"; launches {launches}; {len(bad)} bad pixels fixed, stripes changed {restriped} "
           f"green px of frame 0; gains {cpu_gains.tolist()} from the first batch == the cpu's; first "
           f"{n_ref} DNGs == cpu conversion ({cpu_secs:.1f} s on the cpu for {batch_size} frames) [{card}]")
@@ -2085,6 +2187,8 @@ def dual_iso_full_path(work, card, device="cuda", frames=32, size=(1920, 1080),
         files = dng_files(out)
         check(len(files) == n, f"dual-ISO full {tag}: {n} DNGs (got {len(files)})")
         batches = math.ceil(n / batch_size) if device.startswith("cuda") else 0
+        check((launches["evmath"] > 0) == (batches > 0),
+              f"dual-ISO full {tag}: the EV kernel launches on the card only ({launches['evmath']})")
         check(launches["alias_filter"] == batches,
               f"dual-ISO full {tag}: alias kernel launches {launches['alias_filter']} == {batches}")
         check(launches["chroma_smooth"] == 0 and launches["dualiso_preview"] == 0,
@@ -2117,15 +2221,14 @@ def dual_iso_full_path(work, card, device="cuda", frames=32, size=(1920, 1080),
             a = np.frombuffer(raw, "<u2", offset=DNG_HEADER)
             b = np.frombuffer(ref, "<u2", offset=DNG_HEADER)
             pv, share = psnr(a, b), float((a != b).mean())
-            check(pv >= 90 and share <= 0.03, f"dual-ISO full {tag} {os.path.basename(p)}: {device} "
-                  f"vs cpu PSNR {pv:.1f} dB >= 90, {100 * share:.4f} % of pixels differ <= 3 %")
             worst_psnr, worst_share = min(worst_psnr, pv), max(worst_share, share)
+            check(raw == ref, f"dual-ISO full {tag} {os.path.basename(p)}: {device} == cpu, byte for "
+                  f"byte (PSNR {pv:.1f} dB, {100 * share:.4f} % of pixels differ)")
         print(f"convert {tag} {w}x{h} 14-bit dual-ISO {' '.join([*program, *extra])}, {n} frames, "
               f"--device {device}: {secs:.3f} s, {n / secs:.1f} f/s; launches {launches}; {converted} "
-              f"frames converted at x4 levels, the rest at their own; first {n_ref} DNGs vs cpu "
-              f"({cpu_secs:.1f} s on the cpu): headers and unconverted frames equal, converted "
-              f"frames PSNR >= {worst_psnr:.1f} dB, at most {100 * worst_share:.4f} % of pixels "
-              f"differ [{card}]")
+              f"frames converted at x4 levels, the rest at their own; first {n_ref} DNGs == cpu "
+              f"({cpu_secs:.1f} s on the cpu), byte for byte (PSNR >= {worst_psnr:.1f} dB, at most "
+              f"{100 * worst_share:.4f} % of pixels differ) [{card}]")
     if interp != "mean23":
         return total
     out = os.path.join(work, "dif_noalias_out")
@@ -2256,8 +2359,8 @@ def breakdown(work, card, frames):
     import types
 
     from mlvfs_tpu_torch.ops import (alias, amaze, amaze_core, amaze_edge, chroma_smooth, dualiso,
-                                     dualiso_analysis_dev, dualiso_full, dualiso_preview_dev, histogram,
-                                     patternnoise, patternnoise_fused, pixels, stripes, unpack)
+                                     dualiso_analysis_dev, dualiso_full, dualiso_preview_dev, evmath,
+                                     histogram, patternnoise, patternnoise_fused, pixels, stripes, unpack)
     from mlvfs_tpu_torch.utils import metrics
 
     w, h, b, black, white = 1920, 1080, 16, 2048, 15000
@@ -2423,6 +2526,11 @@ def breakdown(work, card, frames):
           f"bound {5 * 2 * n_padded * 4 / HBM_BYTES_PER_S * 1e3:.4f} ms (bytes: each of the five passes "
           f"reads and writes its {ws + 32}x{hs + 32} B={bs} plane) [{card}]")
     for name, fn in layers:
+        launched = ""
+        if name.startswith("dual-ISO full"):
+            before = getattr(evmath, "KERNEL_LAUNCHES", 0)  # a parent without the EV kernel has none
+            fn()
+            launched = f", {getattr(evmath, 'KERNEL_LAUNCHES', 0) - before} EV kernel launches a call"
         device_ms = _median_ms(fn)
         host = []
         for _ in range(20):
@@ -2431,7 +2539,7 @@ def breakdown(work, card, frames):
             fn()
             host.append(1e3 * (time.perf_counter() - t0))
         print(f"per batch of {b} at {w}x{h}: {name}: device {device_ms:.4f} ms, host enqueue "
-              f"{sorted(host)[10]:.4f} ms [{card}]")
+              f"{sorted(host)[10]:.4f} ms{launched} [{card}]")
 
     programs = [
         ("flags-on", FLAGS_ON, flagged_frames(frames, w, h)[0], {}),
@@ -2577,6 +2685,7 @@ def main() -> int:
     mega_row = amaze_mega_vs_plain(card)
     frame_row, frame_launches = amaze_frame_vs_plain(card)
     fit_row, fit_chain_ms = preview_fit_vs_plain(card)
+    ev_row = ev_vs_plain(card)
     try:
         reset_launches()
         default_launches = main_path(work, card=card)
@@ -2597,12 +2706,12 @@ def main() -> int:
     rows = {"unpack": unpack_row, "chroma_smooth": chroma_rows[3],  # the path's --cs3x3
             **pn_rows, "dualiso_preview": preview_row, "alias_filter": alias_row,
             "amaze_edge_pick": edge_row, **amaze_rows, "amaze_mega": mega_row,
-            "amaze_raster_frame": frame_row, "preview_fit": fit_row}
+            "amaze_raster_frame": frame_row, "preview_fit": fit_row, "evmath": ev_row}
     paths = (flags_launches, pn_launches, di_launches, full_launches, amaze_launches, mega_launches)
     launches = {name: sum(path[name] for path in paths) for name in rows}
     launches["unpack"] += default_launches
     for name in ("pn_blur_interleaved", "dualiso_preview", "alias_filter", "amaze_edge_pick",
-                 "amaze_demosaic", "amaze_raster_passes", "amaze_mega", "preview_fit"):
+                 "amaze_demosaic", "amaze_raster_passes", "amaze_mega", "preview_fit", "evmath"):
         check(launches[name] > 0, f"the main paths launched {name}")
     # kernels #4 and #11 are on no convert path: their launches there are 0,
     # and those of their kernel phases are listed apart
@@ -2613,8 +2722,8 @@ def main() -> int:
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None,  # no single PyTorch call computes any of these functions
         **({"kernel_phase_launches": phase_launches[name]} if name in phase_launches else {}),
-        **({"pallas_original": False, "chain_bound_ms": fit_chain_ms}
-           if name in NO_PALLAS_ORIGINAL else {}),
+        **({"pallas_original": False} if name in NO_PALLAS_ORIGINAL else {}),
+        **({"chain_bound_ms": fit_chain_ms} if name == "preview_fit" else {}),
     } for name, (err, ms, plain_ms, bound_ms, bound_by) in rows.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

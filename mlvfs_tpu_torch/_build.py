@@ -41,6 +41,7 @@ EXTRA_FLAGS = {
     "amaze_scans": ("-fmad=false",),
     "amaze_mega": ("-fmad=false",),
     "dualiso_preview_fit": ("-fmad=false",),
+    "evmath": ("-fmad=false",),
 }
 
 
@@ -264,6 +265,41 @@ _SIGNATURES = {
                 ctypes.c_void_p,  # cudaStream_t
             ],
         ),
+    },
+    "evmath": {
+        # out, element count, then (d1, d2) of the merged dimensions and each
+        # operand as (pointer or NULL, kind, value, three strides), ops/evmath.py:
+        # plan_operands
+        "mlvfs_ev_fma": (
+            ctypes.c_int,
+            [
+                ctypes.c_void_p,  # out float32
+                *[ctypes.c_longlong] * 3,  # n, d1, d2
+                *[ctypes.c_void_p, ctypes.c_int, ctypes.c_float, *[ctypes.c_longlong] * 3] * 3,  # x, y, z
+                ctypes.c_void_p,  # cudaStream_t
+            ],
+        ),
+        "mlvfs_ev_log2_add": (
+            ctypes.c_int,
+            [
+                ctypes.c_void_p,  # out float32
+                *[ctypes.c_longlong] * 3,  # n, d1, d2
+                ctypes.c_void_p,  # x float32, the result's shape, contiguous
+                ctypes.c_void_p, ctypes.c_int, ctypes.c_float, *[ctypes.c_longlong] * 3,  # c
+                ctypes.c_void_p,  # cudaStream_t
+            ],
+        ),
+        **{"mlvfs_ev_" + fn: (
+            ctypes.c_int,
+            [
+                ctypes.c_void_p,  # out, contiguous: float32 (int32 for raw2ev20, ev2raw20)
+                ctypes.c_longlong,  # n
+                ctypes.c_void_p,  # x, contiguous: float32 (int32 for the 20-bit transforms)
+                *[ctypes.c_int] * levels,  # black20 (ev2raw20: black20, white20, white_ev, zero_ev)
+                ctypes.c_void_p,  # cudaStream_t
+            ],
+        ) for fn, levels in (("log_f32", 0), ("log2_f32", 0), ("exp2_f32", 0), ("raw2ev20", 1),
+                             ("fullres_weight", 1), ("ev2raw20", 4))},
     },
     "alias": {
         "mlvfs_alias_filter": (

@@ -526,7 +526,7 @@ def _stencil_stages_plain(cfa, passes):
     pmwt = _cells(torch.where(rbmask, pmwt_site, 0.0), rbmask)
 
     # pmwt refinement + rbint (amaze:1277-1284)
-    pmwt = passes["refine"](pmwt)
+    pmwt = passes["refine"](pmwt).contiguous()  # a full plane, as evmath.fma's kernel takes it
     rbint = _cells(torch.where(rbmask, 0.5 * fma(rbp, pmwt, fma(rbm, 1.0 - pmwt, cfa)), 0.0), rbmask)
 
     # ---- G correction via R+B (amaze:1287-1352)

@@ -201,6 +201,13 @@ def white_ev_of(black20: int, white20: int) -> int:
     return int(round(math.log2(1 + max(white20 / 64.0 - black20 / 64.0, 0)) * EV_RESOLUTION))
 
 
+@functools.lru_cache(maxsize=4)
+def _max_ev(black20: int, white20: int) -> torch.Tensor:
+    """log2 of the white's distance from black (mix_images), a 0-dim host
+    tensor, computed once per levels."""
+    return evmath.log2_f32(torch.tensor(float(white20 // 64 - black20 // 64)))
+
+
 @metrics.traced("recon", metrics.DEVICE)
 def reconstruct_batch(imgs, row_bright, s, a, b20, white_darkened, corr_ev, overlap, *,
                       black20: int, white20: int, interp_method: int, use_fullres: bool,
@@ -271,7 +278,7 @@ def reconstruct_batch(imgs, row_bright, s, a, b20, white_darkened, corr_ev, over
             fullres = torch.zeros_like(raw)
 
         # half-res blend (mix_images, hdr.c:1560-1611)
-        max_ev = evmath.log2_f32(torch.tensor(float(white20 // 64 - black20 // 64)))  # a host scalar
+        max_ev = _max_ev(black20, white20)
         ov = per_frame(overlap.to(torch.float32))
         bright_ev = ev_of(bright)
         dark_ev = ev_of(dark)

@@ -18,10 +18,11 @@ import torch
 from mlvfs_tpu_torch.format import synth
 from mlvfs_tpu_torch import _build
 from mlvfs_tpu_torch.ops import (alias, amaze_core, amaze_edge, amaze_scans, chroma_smooth, dualiso,
-                                 dualiso_full, dualiso_preview_dev, patternnoise, patternnoise_fused,
-                                 pixels, stripes, unpack)
+                                 dualiso_full, dualiso_preview_dev, evmath, patternnoise,
+                                 patternnoise_fused, pixels, stripes, unpack)
 from mlvfs_tpu_torch.pipeline.config import ProcessingConfig
 from mlvfs_tpu_torch.pipeline.convert import convert_clip
+from mlvfs_tpu_torch.utils import metrics
 from tests.test_torch_hdr_frames import hdr_threshold_frames
 
 
@@ -868,6 +869,206 @@ def test_dual_iso_amaze_edge_mega_convert_on_card_matches_split(tmp_path, monkey
         assert launched == ((0, 3, 15) if mode == "split" else (3, 0, 0))
         trees.append({n: (out / n).read_bytes() for n in sorted(os.listdir(out))})
     assert len(trees[0]) == 5 and trees[0] == trees[1]
+
+
+def _same_values(a, b):
+    """Equal dtype, shape and bits; float NaNs compare as NaN (the card's
+    arithmetic NaN and the CPU's carry different payloads)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    a, b = a.cpu(), b.cpu()
+    if a.dtype != torch.float32:
+        return torch.equal(a, b)
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and torch.equal(a[~na].view(torch.int32), b[~nb].view(torch.int32))
+
+
+def _ev_float_sweep():
+    """Every 4099th float32 bit pattern of both signs (subnormals included)
+    and the specials: +-0, +-inf, NaN, the smallest subnormal and normal,
+    exp's clamps and 2^n's edges."""
+    bits = np.arange(0, 1 << 32, 4099, dtype=np.int64)
+    xs = ((bits + (1 << 31)) % (1 << 32) - (1 << 31)).astype(np.int32).view(np.float32)
+    spec = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, -np.nan, 1e-45, -1e-45, 1e-40, 2.0 ** -126, 1.0,
+                     2.0, 88.8, 88.7, -104.0, -103.9, 127.9, 128.0, -126.0, -150.0], np.float32)
+    return torch.from_numpy(np.concatenate([xs, spec]))
+
+
+def _fma_ties(rng, n):
+    """(x, y, z) whose exact x * y + z lies just inside, or exactly on, a
+    midpoint of z's float32 neighbours: z with an odd last bit, x * y = half
+    an ulp of z times (1 - 2^-46) or exactly. Rounding x * y + z in float64
+    first lands on the midpoint, and round-to-even then picks the wrong
+    neighbour for half of them."""
+    e = rng.integers(-100, 100, n)
+    z = np.ldexp((rng.integers(1 << 23, 1 << 24, n) | 1).astype(np.float64), e - 23) * rng.choice([-1.0, 1.0], n)
+    x = 1.0 + rng.choice([-2.0 ** -24, 0.0, 2.0 ** -23], n)
+    y = np.ldexp(1.0, e - 24) * rng.choice([-1.0, 1.0], n) * np.where(
+        x > 1, 1 - 2.0 ** -23, np.where(x < 1, 1 + 2.0 ** -23, 1.0))
+    return [torch.from_numpy(v.astype(np.float32)) for v in (x, y, z)]
+
+
+def _ev_cases(name):
+    """[(args on the CPU, label)] of one EV entry: the inputs its card test
+    holds bit-equal."""
+    evr = 32768
+    if name in ("raw2ev20", "fullres_weight"):
+        every = torch.arange(1 << 20, dtype=torch.int32).reshape(16, 256, 256)  # every 20-bit input
+        return [((every, black20), f"black20 {black20}") for black20 in (2048 * 64, 2047 * 64 + 17)]
+    if name == "ev2raw20":
+        ev = torch.cat([torch.arange(-10 * evr, 14 * evr, dtype=torch.int32),
+                        torch.arange(-(1 << 22), -10 * evr, 997, dtype=torch.int32),  # the tails
+                        torch.arange(14 * evr, 1 << 22, 997, dtype=torch.int32),
+                        torch.tensor([-(1 << 31), (1 << 31) - 1], dtype=torch.int32)])
+        cases = []
+        for white20 in (15000 * 64, 640000):
+            white_ev = dualiso_full.white_ev_of(2048 * 64, white20)
+            cases.append(((ev, 2048 * 64, white20, white_ev), f"white20 {white20}"))
+        return cases
+    xs = _ev_float_sweep()
+    if name != "log2_add":
+        return [((xs,), "sweep")]
+    frames = xs[: 16 * 256 * 255].reshape(16, 256, 255).contiguous()
+    rng = np.random.default_rng(11)
+    return [((xs, -4.0), "by value"),
+            ((xs, torch.from_numpy(rng.standard_normal(xs.shape[0]).astype(np.float32))), "full plane"),
+            ((frames, torch.from_numpy(rng.standard_normal((16, 1, 1)).astype(np.float32))), "per frame")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["log_f32", "log2_f32", "log2_add", "exp2_f32", "raw2ev20", "ev2raw20",
+                                  "fullres_weight"])
+def test_ev_kernel_matches_plain(name):
+    """Each EV transform's kernel entry (csrc/evmath.cu) is bit-equal to its
+    plain twin on the card and to the twin on the CPU: raw2ev20 and the
+    fullres curve on every 20-bit input at the cell's black and one off the
+    64-grid, ev2raw20 on every EV of [-10, 14) * EVR and both tails at two
+    whites, the logs and exps on a float32 sweep with subnormals, +-0,
+    negatives, +-inf and NaN. One launch a call."""
+    _need_card()
+    fn, plain = getattr(evmath, name), getattr(evmath, name + "_plain")
+    for args, label in _ev_cases(name):
+        card = [a.cuda() if isinstance(a, torch.Tensor) else a for a in args]
+        before, counted = evmath.KERNEL_LAUNCHES, metrics.counters().get("ev.launches", 0)
+        got = fn(*card)
+        assert evmath.KERNEL_LAUNCHES == before + 1 and metrics.counters()["ev.launches"] == counted + 1
+        want = plain(*card)
+        torch.cuda.synchronize()
+        assert got.device.type == "cuda" and _same_values(got, want), (name, label)
+        assert _same_values(got, plain(*args)), (name, label, "the CPU twin")
+
+
+@pytest.mark.cuda
+def test_ev_fma_kernel_matches_plain_in_every_form():
+    """The fma entry is bit-equal to the twin (on the card and on the CPU)
+    on random triples over a wide exponent range, constructed midpoint ties
+    and subnormal results, and with every operand form its callers pass:
+    full planes, per-frame (B, 1, 1) vectors, Python floats, 0-dim host
+    tensors, the analysis' (B, 1) x (1, S) + (B, 1) and (1, N) x (S, 1) +
+    (S, 1) products, and full planes that start off 16-byte boundaries.
+    Results stay below 2^128: past it the twin's float64 emulation gives
+    the largest float where the sum it rounds is inexact, and the kernel
+    the IEEE infinity."""
+    _need_card()
+    rng = np.random.default_rng(12)
+
+    def r(*shape):
+        v = rng.standard_normal(shape) * 10.0 ** rng.integers(-18, 18, shape)
+        return torch.from_numpy(v.astype(np.float32))
+
+    b, h, w = 16, 108, 192
+    full = [r(b, h, w) for _ in range(3)]
+    frame = r(b, 1, 1)
+    tx, ty, tz = _fma_ties(rng, 1 << 20)
+    sub = [torch.from_numpy((rng.random(1 << 20) * 2 - 1).astype(np.float32)) * s
+           for s in (2.0 ** -70, 2.0 ** -70, 2.0 ** -130)]
+    bmed, a_cand, hb, bc = r(b), r(3000), r(b, 4621), r(b, 3000)
+    odd = r(b * h * w + 3)
+    cases = {
+        "random": full, "ties": [tx, ty, tz], "subnormal": sub,
+        "frame, frame, full": [frame, r(b, 1, 1), full[2]],
+        "full, frame, value": [full[0], frame, 0.5],
+        "value, full, host 0-dim": [-0.075, full[1], torch.tensor(1.5)],
+        "full, full, frame": [full[0], full[1], frame],
+        "(B,1) x (1,S) + (B,1)": [-bmed[:, None], a_cand[None, :], bmed[:, None]],
+        "(1,N) x (S,1) + (S,1)": [hb[3][None, :], a_cand[:, None], bc[3][:, None]],
+        "short": [r(7), r(7), r(7)],
+    }
+    offsets = [(1, 1 + b * h * w), (2, 2 + b * h * w), (3, 3 + b * h * w)]
+    odd_card = odd.cuda()
+    for label, args in [*cases.items(), ("off 16 B", [odd[i:j].view(b, h, w) for i, j in offsets])]:
+        card = [a.cuda() if isinstance(a, torch.Tensor) and a.dim() else a for a in args]
+        if label == "off 16 B":  # views of one card buffer, each starting 4, 8 or 12 B past 16
+            card = [odd_card[i:j].view(b, h, w) for i, j in offsets]
+        before = evmath.KERNEL_LAUNCHES
+        got = evmath.fma(*card)
+        assert evmath.KERNEL_LAUNCHES == before + 1, label
+        want = evmath.fma_plain(*card)
+        torch.cuda.synchronize()
+        assert got.device.type == "cuda" and _same_values(got, want), label
+        assert _same_values(got, evmath.fma_plain(*args)), (label, "the CPU twin")
+    naive = (tx.double() * ty.double() + tz.double()).float()
+    assert (naive != evmath.fma(tx.cuda(), ty.cuda(), tz.cuda()).cpu()).any()  # the ties bite
+    big = torch.tensor([1.8903134e19], device="cuda")
+    assert evmath.fma(big, big, -1.0).item() == float("inf")  # 3.57e38 rounds up past the largest float
+
+
+@pytest.mark.cuda
+def test_ev_kernels_refuse_bad_input():
+    """A wrong dtype, a CPU tensor beside a CUDA one, a non-contiguous full
+    plane and an x smaller than log2_add's result raise before any launch;
+    an empty input launches nothing."""
+    _need_card()
+    x = torch.ones((4, 6, 8), device="cuda")
+    before = evmath.KERNEL_LAUNCHES
+    for call, error in [
+        (lambda: evmath.log2_f32(x.double()), TypeError),
+        (lambda: evmath.raw2ev20(x, 2048 * 64), TypeError),
+        (lambda: evmath.fma(x, x.to(torch.float16), 1.0), TypeError),
+        (lambda: evmath.fma(x, torch.ones((4, 6, 8)), 1.0), ValueError),
+        (lambda: evmath.log2_add(x, torch.ones((4, 1, 1))), ValueError),
+        (lambda: evmath.fma(x.transpose(1, 2).contiguous().transpose(1, 2), x, 1.0), ValueError),
+        (lambda: evmath.exp2_f32(x[:, :, ::2]), ValueError),
+        (lambda: evmath.log2_add(x[:, :1], x), ValueError),
+    ]:
+        with pytest.raises(error):
+            call()
+    assert evmath.KERNEL_LAUNCHES == before
+    assert evmath.log2_f32(x[:0]).shape == (0, 6, 8) and evmath.KERNEL_LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("program", ["mean23", "amaze-split", "amaze-mega"])
+def test_dual_iso_convert_on_card_equals_cpu(program, tmp_path, monkeypatch):
+    """--dual-iso --mean23, and --dual-iso (amaze-edge) in split and mega
+    mode, on a clip whose third frame is single-ISO, write DNGs on the card
+    byte-identical to the CPU's: every EV transform launches csrc/evmath.cu
+    (KERNEL_LAUNCHES grows on the card only), which gives its twin's bits."""
+    _need_card()
+    import dataclasses
+
+    spec = synth.SynthSpec(width=640, height=192, frames=5, dual_iso=3)
+    rng = np.random.default_rng(16)
+    data = np.stack([synth.make_frame_data(dataclasses.replace(spec, dual_iso=0) if i == 2 else spec,
+                                           rng) for i in range(spec.frames)])
+    monkeypatch.setenv(amaze_core.MODE_ENV, "mega" if program == "amaze-mega" else "split")
+    trees = []
+    for device in ("cuda", "cpu"):
+        src = tmp_path / device / "C.MLV"
+        src.parent.mkdir()
+        synth.write_mlv(str(src), spec, frame_data=data)
+        before = evmath.KERNEL_LAUNCHES
+        convert_clip(str(src), str(tmp_path / device / "out"), ProcessingConfig(
+            device=device, batch_size=2, dual_iso=2, hdr_interpolation_method=int(program == "mean23")))
+        launched = evmath.KERNEL_LAUNCHES - before
+        print(f"{program} on {device}: evmath.KERNEL_LAUNCHES grew by {launched}")
+        assert (launched > 0) == (device == "cuda")
+        out = tmp_path / device / "out"
+        trees.append({n: (out / n).read_bytes() for n in sorted(os.listdir(out))})
+    assert len(trees[0]) == 5
+    differ = {n: int((np.frombuffer(trees[0][n], "<u2") != np.frombuffer(trees[1][n], "<u2")).sum())
+              for n in trees[0] if trees[0][n] != trees[1][n]}
+    assert not differ, f"{program}: samples that differ from the CPU's, by DNG: {differ}"
 
 
 def test_library_path_follows_source(tmp_path, monkeypatch):

@@ -52,7 +52,7 @@ def test_nesting_parents_and_host_times():
 def test_ev_spans_are_outermost_only():
     metrics.enable()
     x = torch.linspace(1.0, 100.0, 64)
-    evmath.log2_f32(x)  # log_f32 and a dozen fma calls inside it
+    evmath.fullres_weight(torch.arange(0, 1 << 20, 4099, dtype=torch.int32), 2048 * 64)  # cos_f32 inside
     evmath.fma(x, 2.0, 1.0)
     ev = [s for s in metrics.spans() if s.name == "ev"]
     assert len(ev) == 2 and all(s.parent is None and s.kind == metrics.DEVICE for s in ev)
