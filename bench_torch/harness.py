@@ -17,6 +17,10 @@ window the program's state is freed and the plain reference
 (``reference/``) recomputes a sample of the batches; the DNGs are compared
 with it.
 
+Each run also logs a ``host`` line on standard error (``host_record``):
+every take pass's length, the longest gap between batches and the CPU the
+process used; it is not part of the result.
+
 The take and the DNGs live in a directory of the machine's shared memory,
 named from the checkout's path (fixed for a checkout, different for two
 checkouts) and removed when the run ends: a window writes gigabytes of
@@ -29,6 +33,7 @@ import argparse
 import dataclasses
 import gc
 import hashlib
+import json
 import os
 import random
 import shutil
@@ -275,6 +280,7 @@ def run_cell(cell_name: str, seed: int, seconds: float, traced: bool, *, t_start
 
                 window = devtrace.DeviceWindow()
                 window.start()
+            cpu0 = _cpu_s()
             t0 = time.perf_counter()
             deadline[0] = t0 + seconds
             setup_s = t0 - t_start
@@ -290,6 +296,7 @@ def run_cell(cell_name: str, seed: int, seconds: float, traced: bool, *, t_start
                 window.stop()
             elif cuda:
                 torch.cuda.synchronize()
+            cpu1 = _cpu_s()
         finally:
             stream.BatchPrefetcher = base_prefetcher
             recorder.uninstall()
@@ -301,6 +308,8 @@ def run_cell(cell_name: str, seed: int, seconds: float, traced: bool, *, t_start
         lengths = sorted(b - a for _, a, b in takes)
         log(f"take passes: shortest {lengths[0]:.3f} s, median {lengths[len(lengths) // 2]:.3f} s, "
             f"longest {lengths[-1]:.3f} s")
+        log("host " + json.dumps(host_record(n_frames / (t_close - t0), takes, batches, waits, t0,
+                                             cpu0, cpu1, t_close - t0)))
         trace = None
         if window is not None:
             import devtrace
@@ -346,6 +355,29 @@ def run_cell(cell_name: str, seed: int, seconds: float, traced: bool, *, t_start
         return result
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+
+
+def _cpu_s() -> tuple:
+    """CPU seconds of the process (all its threads, ended ones included)
+    and of the calling thread. Call it on the main thread."""
+    times = os.times()
+    return times.user + times.system, time.thread_time()
+
+
+def host_record(rate, takes, batches, waits, t0, cpu0, cpu1, seconds) -> dict:
+    """One run's host-side record for standard error: the rate, every take
+    pass's length, the longest gap between two batches' last DNGs (the
+    first from the window's start), the longest wait of the main thread
+    for a batch's read, and the CPU over the window (``_cpu_s`` at its
+    start and end): the process's in cores, the main thread's in % of the
+    window."""
+    ends = sorted(b["finish"][1] for b in batches)
+    gaps = [b - a for a, b in zip([t0] + ends, ends)]
+    return {"rate": round(rate, 4), "passes_s": [round(b - a, 3) for _, a, b in takes],
+            "longest_batch_gap_s": round(max(gaps, default=0.0), 3),
+            "longest_fetch_wait_s": round(max((b - a for a, b in waits), default=0.0), 3),
+            "process_cores": round((cpu1[0] - cpu0[0]) / seconds, 3),
+            "main_on_cpu_pct": round(100.0 * (cpu1[1] - cpu0[1]) / seconds, 2)}
 
 
 def _labels(recorder, waits, takes) -> list:
