@@ -113,6 +113,18 @@ Phases (any failed check raises, and the script exits non-zero):
      fullres curve over 20-bit inputs, log, log2, log2 + a per-frame c,
      exp2, fma over three full planes and with per-frame x and y; each
      call's time by CUDA events beside its byte bound and the twin's time;
+  2l. the reconstruction's fused float stages (``csrc/dualiso_recon.cu``,
+     which replaces no Pallas kernel), each entry at 1080p with B=16 against
+     its plain twin on the card, bit-equal, one launch a call: match on a
+     row slice of a batch, blend with the alias planes (the main path) and
+     without (``--cs*``), the alias planes of smoothed planes, the final
+     blend; each call's time by CUDA events beside its byte bound and the
+     twin's time; the exposure fit's scoring kernel
+     (``csrc/dualiso_scores.cu``, no Pallas original) against its twin on a
+     1080p batch's highlight pairs, bit-equal and timed; then the dual-ISO
+     analysis of a 1080p batch of 16 replayed from its CUDA graph against
+     the eager analysis, bit-equal over three batches of other data, with
+     both forms' host and device ms;
   3. the default convert path, ``python -m mlvfs_tpu_torch convert CLIP -o
      OUT --device cuda`` through ``cli.main``: a 1920x1080 14-bit 5D Mark III
      clip (64 frames) whose DNG payloads must equal the synthesized frames,
@@ -195,7 +207,7 @@ kernels as phases 2g and 2h time them; #9's steps where the port stamps
 them), for the port in DIR (default: this checkout), so
 that another commit's kernels (a parent unpacked by ``git archive``) are
 measured by the same code in the same call. ``python3 chip_smoke.py
---mega`` builds the kernels and runs phase 2h alone.
+--mega`` builds the kernels and runs phase 2h alone, ``--recon`` phase 2l.
 
 Without a CUDA card it exits non-zero and prints no result. The line before the last is a JSON summary of the kernels; the last
 line of stdout is ``{"ok": true, "device": {"platform": "gpu", "kind": ...,
@@ -236,8 +248,10 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "preview_fit": ("mlvfs_tpu_torch/csrc/dualiso_preview_fit.cu",
                     "mlvfs_tpu/ops/dualiso_preview_dev.py:67"),
     "evmath": ("mlvfs_tpu_torch/csrc/evmath.cu", "mlvfs_tpu/ops/evmath.py:20"),
+    "dualiso_recon": ("mlvfs_tpu_torch/csrc/dualiso_recon.cu", "mlvfs_tpu/ops/dualiso_full.py:445"),
+    "fit_scores": ("mlvfs_tpu_torch/csrc/dualiso_scores.cu", "mlvfs_tpu/ops/dualiso_analysis_dev.py:161"),
 }
-NO_PALLAS_ORIGINAL = {"preview_fit", "evmath"}
+NO_PALLAS_ORIGINAL = {"preview_fit", "evmath", "dualiso_recon", "fit_scores"}
 DNG_HEADER = 65536
 # the card's published peaks (NVIDIA H100 SXM data sheet, at the 700 W limit):
 # HBM3 bandwidth, and int32 ALU operations: 132 SMs x 64 int32 lanes x
@@ -887,7 +901,7 @@ def ev_calls():
     [-20, 20] for the exps, a per-frame (B, 1, 1) vector, full planes."""
     import torch
 
-    from mlvfs_tpu_torch.ops import dualiso_full
+    from mlvfs_tpu_torch.ops import dualiso_recon
 
     gen = torch.Generator(device="cuda").manual_seed(15)
 
@@ -904,7 +918,7 @@ def ev_calls():
     planes = [floats(2.0, -1.0) for _ in range(3)]
     return [
         ("raw2ev20", "raw2ev20", (raw, black20), 8 * n),
-        ("ev2raw20", "ev2raw20", (ev, black20, white20, dualiso_full.white_ev_of(black20, white20)), 8 * n),
+        ("ev2raw20", "ev2raw20", (ev, black20, white20, dualiso_recon.white_ev_of(black20, white20)), 8 * n),
         ("fullres_weight", "fullres_weight", (raw, black20), 8 * n),
         ("log_f32", "log_f32", (pos,), 8 * n),
         ("log2_f32", "log2_f32", (pos,), 8 * n),
@@ -948,6 +962,207 @@ def ev_vs_plain(card: str):
         for k, v in enumerate((ms, plain_ms, bound_ms)):
             totals[k] += v
     return (max_err, *totals, "bytes")
+
+
+def recon_inputs(shape=EV_SHAPE, seed=20):
+    """The fused stages' inputs on the card: 20-bit bright and dark planes
+    over every range (below black, past the darkened white and white), the
+    row masks, per-frame scalars in the analysis' ranges, and int16 frames
+    one row taller, whose row slice match takes."""
+    import torch
+
+    from mlvfs_tpu_torch.ops import evmath
+
+    b, h, w = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def ints(lo, hi, size):
+        return torch.randint(lo, hi, size, generator=gen, device="cuda", dtype=torch.int32)
+
+    def floats(lo, hi, size):
+        return torch.rand(size, generator=gen, device="cuda") * (hi - lo) + lo
+
+    black20, white20 = 2048 * 64, 15000 * 64
+    dark = ints(0, 1 << 20, shape)
+    bright = torch.where(ints(0, 8, shape) == 0, ints(0, 1 << 20, shape),
+                         torch.clamp(dark * 8 - 7 * black20, 0, (1 << 20) - 1))
+    a, b20 = floats(0.1, 0.9, (b,)), floats(-2000.0, 2000.0, (b,))
+    wd = evmath.fma((white20 - black20) + b20, a, float(black20)).to(torch.int32)
+    frames = ints(-(1 << 15), 1 << 15, (b, h + 1, w)).to(torch.int16)
+    return dict(bright=bright, dark=dark, rb=ints(0, 2, (b, h)).bool(), a=a, b20=b20, wd=wd,
+                ce=floats(0.5, 4.0, (b,)), ov=floats(0.5, 6.0, (b,)), sub=frames[:, 1:])
+
+
+def _same_outputs(got, want) -> bool:
+    if isinstance(got, tuple):
+        return len(got) == len(want) and all(_same_outputs(g, x) for g, x in zip(got, want))
+    if got is None or want is None:
+        return got is None and want is None
+    return same_values(got, want)
+
+
+def recon_vs_plain(card: str):
+    """Phase 2l: each fused stage (csrc/dualiso_recon.cu, no Pallas
+    original) at 1080p/B=16: bit-equal to its twin on the card, one launch
+    a call; the call's time by CUDA events beside its byte bound and the
+    twin's. Returns (0.0, and ms, plain_ms, bound_ms summed over the main
+    path's three stages, "bytes")."""
+    import torch
+
+    from mlvfs_tpu_torch.ops import alias, dualiso_recon
+
+    x = recon_inputs()
+    n = math.prod(EV_SHAPE)
+    levels = dict(black20=2048 * 64, white20=15000 * 64)
+    maps = dualiso_recon.computed_maps(**levels)
+    fullres, halfres, *_ = dualiso_recon.blend(x["bright"], x["dark"], x["rb"], x["wd"], x["ce"], x["ov"],
+                                               use_fullres=True, planes=False, use_alias=True, **levels)
+    _, _, over, (f, hs_ev, fs_ev, _, pre, skip) = dualiso_recon.blend(
+        x["bright"], x["dark"], x["rb"], x["wd"], x["ce"], x["ov"], use_fullres=True, planes=True,
+        use_alias=True, **levels)
+    filtered = alias.alias_filter(pre, skip)
+    smooth_f, smooth_h = fullres ^ 5, torch.clamp(halfres + 77, max=(1 << 20) - 1)
+    calls = [  # (label, call given the maps (None: the kernel), bytes it must move, on the main path)
+        ("match", lambda m: dualiso_recon.match(x["sub"], x["rb"], x["a"], x["b20"], black20=levels["black20"],
+                                                maps=m), 6 * n, True),
+        ("blend with the alias planes", lambda m: dualiso_recon.blend(
+            x["bright"], x["dark"], x["rb"], x["wd"], x["ce"], x["ov"], use_fullres=True, planes=True,
+            use_alias=True, maps=m, **levels), 26 * n, True),
+        ("blend (--cs*)", lambda m: dualiso_recon.blend(
+            x["bright"], x["dark"], x["rb"], x["wd"], x["ce"], x["ov"], use_fullres=True, planes=False,
+            use_alias=True, maps=m, **levels), 17 * n, False),
+        ("alias planes (--cs*)", lambda m: dualiso_recon.alias_planes(
+            x["bright"], smooth_f, smooth_h, fullres, use_alias=True, maps=m, **levels), 37 * n, False),
+        ("final", lambda m: dualiso_recon.final(hs_ev, fs_ev, fs_ev, f, filtered, over, x["dark"], x["bright"],
+                                                maps=m, **levels), 27 * n, True),
+    ]
+    totals = [0.0, 0.0, 0.0]
+    for label, fn, moved, main in calls:
+        before = dualiso_recon.KERNEL_LAUNCHES
+        got = fn(None)
+        check(dualiso_recon.KERNEL_LAUNCHES == before + 1, f"recon {label}: one launch a call")
+        want = fn(maps)
+        torch.cuda.synchronize()
+        check(_same_outputs(got, want), f"recon {label}: kernel == plain twin on the card, bit for bit")
+        bound_ms = moved / HBM_BYTES_PER_S * 1e3
+        ms = _median_ms(lambda: fn(None))
+        plain_ms = _median_ms(lambda: fn(maps), reps=5, warmup=1)
+        print(f"recon {label} {'x'.join(map(str, EV_SHAPE))}: kernel {ms:.4f} ms by CUDA events, bound "
+              f"{bound_ms:.4f} ms (bytes: {moved / n:.0f} B a pixel), {100 * bound_ms / ms:.1f} % of it; the "
+              f"twin on the card {plain_ms:.4f} ms; bit-equal{' (main path)' if main else ''} [{card}]")
+        if main:
+            for k, v in enumerate((ms, plain_ms, bound_ms)):
+                totals[k] += v
+    return (0.0, *totals, "bytes")
+
+
+def analysis_replay_vs_eager(card: str):
+    """The dual-ISO analysis of a 1080p batch of 16 through a graph cache:
+    eager, then captured, then replayed, each output bit-equal to the eager
+    analysis of its own batch; host ms (the call, no wait) and device ms
+    (CUDA events) of the eager and the replayed forms. Before that, the
+    exposure fit's scoring kernel (csrc/dualiso_scores.cu, no Pallas
+    original) against its twin on those frames' highlight pairs, timed.
+    Returns the scoring kernel's row (0, ms, plain_ms, bound_ms,
+    "operations")."""
+    import functools
+
+    import torch
+
+    from mlvfs_tpu_torch.ops import dualiso_analysis_dev as dev
+
+    b, h, w = EV_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    y = torch.arange(h, device="cuda", dtype=torch.float32)[:, None]
+    xs = torch.arange(w, device="cuda", dtype=torch.float32)[None, :]
+    scene = 0.45 * xs / w + 0.35 * y / h + 0.2 * (0.5 + 0.5 * torch.sin(xs / 7.3) * torch.cos(y / 5.1))
+    rows = (torch.arange(h, device="cuda") % 4 >= 2)[None, :, None]
+
+    def frames():
+        data = 2048 + scene * (15000 - 2048) / 8 + 8 * torch.randn((b, h, w), generator=gen, device="cuda")
+        data = torch.where(rows, 2048 + (data - 2048) * 8, data)
+        return torch.clamp(data, 0, 16383).to(torch.int32).to(torch.int16)
+
+    fn = functools.partial(dev._analyze, y_off=0, hh=h, black=2048)
+    is_hdr = torch.ones(b, dtype=torch.bool, device="cuda")
+    a_cand = dev.candidate_gains(torch.device("cuda"))
+    cache = dev.GraphCache("smoke.analysis", 2)
+
+    def timed(call):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        t0 = time.perf_counter()
+        out = call()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        end.record()
+        end.synchronize()
+        return out, host_ms, start.elapsed_time(end)
+
+    batches = [frames() for _ in range(4)]
+    scores_row = fit_scores_vs_plain(batches[0], card)
+    _, eager_host, eager_dev = timed(lambda: cache("smoke", fn, batches[0], is_hdr, a_cand))
+    t0 = time.perf_counter()
+    outs = [cache("smoke", fn, batches[1], is_hdr, a_cand)]
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    replays = []
+    for f in batches[2:]:
+        out, host_ms, dev_ms = timed(lambda: cache("smoke", fn, f, is_hdr, a_cand))
+        outs.append(out)
+        replays.append((host_ms, dev_ms))
+    for f, got in zip(batches[1:], outs):
+        want = fn(f, is_hdr, a_cand)
+        check(bool(want[0].all()), "analysis: every frame of the batch converts")
+        check(_same_outputs(tuple(got), tuple(want)), "analysis: the replay == the eager analysis, bit for bit")
+    print(f"analysis {'x'.join(map(str, EV_SHAPE))}: eager host {eager_host:.2f} ms, device {eager_dev:.2f} ms; "
+          f"capture (with its replay) {capture_s:.3f} s; replays host "
+          f"{', '.join(f'{r[0]:.3f}' for r in replays)} ms, device {', '.join(f'{r[1]:.3f}' for r in replays)} ms; "
+          f"bit-equal over 3 batches [{card}]")
+    return scores_row
+
+
+def fit_scores_vs_plain(frames, card: str):
+    """The scoring kernel on the highlight pairs of these (B, H, W) frames:
+    bit-equal to its twin, one launch; its time by CUDA events beside its
+    operation bound (7 float32 operations an evaluation) and the twin's."""
+    import torch
+
+    from mlvfs_tpu_torch.ops import dualiso_analysis_dev as dev
+
+    captured = {}
+    real = dev.fit_scores
+
+    def grab(*args):
+        captured["args"] = args
+        return real(*args)
+
+    dev.fit_scores = grab
+    try:
+        b, h, w = frames.shape
+        ibf = dev.fields_stat_batch(frames, 2048)[1]
+        wd_w, wb_w = dev.white_detect_batch(frames, ibf, (0, 0, h, w), w * h // 2 // 9)
+        dev.match_exposures_batch(frames, ibf, torch.full((b,), 2048 * 64, dtype=torch.int32, device="cuda"),
+                                  torch.minimum(wd_w, wb_w) * 64, (h, w))
+    finally:
+        dev.fit_scores = real
+    args = captured["args"]
+    before = dev.KERNEL_LAUNCHES
+    got = real(*args)
+    check(dev.KERNEL_LAUNCHES == before + 1, "fit scores: one launch a call")
+    want = dev.fit_scores_plain(*args)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), "fit scores: kernel == plain twin on the card")
+    (b, n), c = args[0].shape, args[3].shape[0]
+    evaluations = b * c * n
+    # the pairs (hb, hd, valid) and candidates (a, b) read once, the int64 scores written
+    bound_ms, bound_by = bound(b * n * 9 + c * 4 + b * c * (4 + 8), 7 * evaluations, FP32_OPS_PER_S)
+    ms = _median_ms(lambda: real(*args))
+    plain_ms = _median_ms(lambda: dev.fit_scores_plain(*args), reps=5, warmup=1)
+    print(f"fit scores {args[0].shape[0]} frames x {args[3].shape[0]} candidates x {args[0].shape[1]} pairs: "
+          f"kernel {ms:.4f} ms by CUDA events, bound {bound_ms:.4f} ms ({bound_by}), "
+          f"{100 * bound_ms / ms:.1f} % of it; the twin on the card {plain_ms:.4f} ms; bit-equal [{card}]")
+    return (0, ms, plain_ms, bound_ms, bound_by)
 
 
 def alias_ops(n_selected: int, n_pixels: int) -> int:
@@ -1770,13 +1985,14 @@ def _counters():
                                      dualiso, dualiso_preview_dev, patternnoise, patternnoise_fused,
                                      unpack)
 
-    from mlvfs_tpu_torch.ops import evmath
+    from mlvfs_tpu_torch.ops import dualiso_analysis_dev, dualiso_recon, evmath
 
     modules = {"unpack": unpack, "chroma_smooth": chroma_smooth,
                "pn_blur_interleaved": patternnoise_fused, "pn_blur_split": patternnoise,
                "dualiso_preview": dualiso, "alias_filter": alias, "amaze_edge_pick": amaze_edge,
                "amaze_demosaic": amaze_core, "amaze_raster_passes": amaze_scans,
-               "preview_fit": dualiso_preview_dev, "evmath": evmath}
+               "preview_fit": dualiso_preview_dev, "evmath": evmath, "dualiso_recon": dualiso_recon,
+               "fit_scores": dualiso_analysis_dev}
     return {**{name: (module, "KERNEL_LAUNCHES") for name, module in modules.items()},
             "amaze_mega": (amaze_core, "MEGA_LAUNCHES"),
             "amaze_raster_frame": (amaze_scans, "FRAME_LAUNCHES")}
@@ -1789,6 +2005,14 @@ def reset_launches():
 
 def read_launches() -> dict:
     return {name: getattr(module, counter) for name, (module, counter) in _counters().items()}
+
+
+def analysis_graph_counts() -> tuple:
+    """The dual-ISO analysis' graph captures and replays so far."""
+    from mlvfs_tpu_torch.utils import metrics
+
+    counted = metrics.counters()
+    return counted.get("dualiso.analysis_captures", 0), counted.get("dualiso.analysis_replays", 0)
 
 
 def dng_levels(raw: bytes):
@@ -2180,8 +2404,10 @@ def dual_iso_full_path(work, card, device="cuda", frames=32, size=(1920, 1080),
         clips[tag] = clip
         synth_clip(clip, n, w, h, model, name, frame_data=data, dual_iso=3)
         reset_launches()
+        graphs = analysis_graph_counts()
         secs, _ = convert_cli(clip, out, device, *program, "--no-idx", *extra)
         launches = read_launches()
+        captures, replays = (n - m for n, m in zip(analysis_graph_counts(), graphs))
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
         files = dng_files(out)
@@ -2193,6 +2419,18 @@ def dual_iso_full_path(work, card, device="cuda", frames=32, size=(1920, 1080),
               f"dual-ISO full {tag}: alias kernel launches {launches['alias_filter']} == {batches}")
         check(launches["chroma_smooth"] == 0 and launches["dualiso_preview"] == 0,
               f"dual-ISO full {tag}: no 16-bit chroma or preview kernel ({launches})")
+        check(launches["fit_scores"] == batches,
+              f"dual-ISO full {tag}: the fit's scoring launches {launches['fit_scores']} == {batches}, "
+              f"replayed or not")
+        # a batch shape captures on its second batch and replays from then on
+        # (an earlier convert may have seen the clip's shapes): the 5D3 clip's
+        # two batches of one shape replay at least once
+        check(captures <= replays <= batches and replays >= (1 if tag == "5D3" and batches else 0),
+              f"dual-ISO full {tag}: analysis graph captures {captures}, replays {replays} of {batches} batches")
+        recon_per_batch = 4 if "--cs2x2" in extra else 3  # match, blend, (alias planes,) final
+        check(launches["dualiso_recon"] == recon_per_batch * batches,
+              f"dual-ISO full {tag}: fused stage launches {launches['dualiso_recon']} == "
+              f"{recon_per_batch} x {batches}")
         for name, per_batch in amaze_per_batch.items():
             check(launches[name] == per_batch * batches,
                   f"dual-ISO full {tag} {interp}: {name} launches {launches[name]} == "
@@ -2233,9 +2471,17 @@ def dual_iso_full_path(work, card, device="cuda", frames=32, size=(1920, 1080),
         return total
     out = os.path.join(work, "dif_noalias_out")
     reset_launches()
+    graphs = analysis_graph_counts()
     secs, _ = convert_cli(clips["5D3"], out, device, *DUAL_ISO_FULL, "--no-alias-map", "--no-idx")
     launches = read_launches()
+    captures, replays = (n - m for n, m in zip(analysis_graph_counts(), graphs))
+    batches = math.ceil(frames / batch_size) if device.startswith("cuda") else 0
+    check(captures == 0 and replays == batches and launches["fit_scores"] == batches,
+          f"--no-alias-map: every batch replays the analysis graph the first 5D3 convert captured "
+          f"(captures {captures}, replays {replays}, scoring launches {launches['fit_scores']} of {batches})")
     check(launches["alias_filter"] == 0, f"--no-alias-map: alias kernel launches {launches['alias_filter']} == 0")
+    check(launches["dualiso_recon"] == (3 * math.ceil(frames / batch_size) if device.startswith("cuda") else 0),
+          f"--no-alias-map: fused stage launches {launches['dualiso_recon']}")
     files = dng_files(out)
     check(len(files) == frames and all(dng_levels(read(p)) == (4 * ri_black, 4 * ri_white) for p in files),
           "--no-alias-map: every frame converted at x4 levels")
@@ -2631,6 +2877,8 @@ def main() -> int:
                     help="only the unpack and chroma calls' times (phases 2 and 2b's inputs)")
     ap.add_argument("--mega", action="store_true",
                     help="only phase 2h: the fused AMaZE kernel #9 against the twin and split mode")
+    ap.add_argument("--recon", action="store_true",
+                    help="only phase 2l: the reconstruction's fused stages and the analysis' graph")
     ap.add_argument("--package-root", default=ROOT, metavar="DIR",
                     help="the checkout whose mlvfs_tpu_torch is measured (default: this one)")
     args = ap.parse_args()
@@ -2657,6 +2905,11 @@ def main() -> int:
     if args.mega:
         _build.build_all()
         amaze_mega_vs_plain(card)
+        check_no_reference("the port ran")
+        return 0
+    if args.recon:
+        recon_vs_plain(card)
+        analysis_replay_vs_eager(card)
         check_no_reference("the port ran")
         return 0
     t0 = time.perf_counter()
@@ -2686,6 +2939,8 @@ def main() -> int:
     frame_row, frame_launches = amaze_frame_vs_plain(card)
     fit_row, fit_chain_ms = preview_fit_vs_plain(card)
     ev_row = ev_vs_plain(card)
+    recon_row = recon_vs_plain(card)
+    scores_row = analysis_replay_vs_eager(card)
     try:
         reset_launches()
         default_launches = main_path(work, card=card)
@@ -2706,12 +2961,14 @@ def main() -> int:
     rows = {"unpack": unpack_row, "chroma_smooth": chroma_rows[3],  # the path's --cs3x3
             **pn_rows, "dualiso_preview": preview_row, "alias_filter": alias_row,
             "amaze_edge_pick": edge_row, **amaze_rows, "amaze_mega": mega_row,
-            "amaze_raster_frame": frame_row, "preview_fit": fit_row, "evmath": ev_row}
+            "amaze_raster_frame": frame_row, "preview_fit": fit_row, "evmath": ev_row,
+            "dualiso_recon": recon_row, "fit_scores": scores_row}
     paths = (flags_launches, pn_launches, di_launches, full_launches, amaze_launches, mega_launches)
     launches = {name: sum(path[name] for path in paths) for name in rows}
     launches["unpack"] += default_launches
     for name in ("pn_blur_interleaved", "dualiso_preview", "alias_filter", "amaze_edge_pick",
-                 "amaze_demosaic", "amaze_raster_passes", "amaze_mega", "preview_fit", "evmath"):
+                 "amaze_demosaic", "amaze_raster_passes", "amaze_mega", "preview_fit", "evmath",
+                 "dualiso_recon", "fit_scores"):
         check(launches[name] > 0, f"the main paths launched {name}")
     # kernels #4 and #11 are on no convert path: their launches there are 0,
     # and those of their kernel phases are listed apart

@@ -42,6 +42,8 @@ EXTRA_FLAGS = {
     "amaze_mega": ("-fmad=false",),
     "dualiso_preview_fit": ("-fmad=false",),
     "evmath": ("-fmad=false",),
+    "dualiso_recon": ("-fmad=false",),
+    "dualiso_scores": ("-fmad=false",),
 }
 
 
@@ -300,6 +302,78 @@ _SIGNATURES = {
             ],
         ) for fn, levels in (("log_f32", 0), ("log2_f32", 0), ("exp2_f32", 0), ("raw2ev20", 1),
                              ("fullres_weight", 1), ("ev2raw20", 4))},
+    },
+    "dualiso_recon": {
+        "mlvfs_recon_match": (
+            ctypes.c_int,
+            [
+                ctypes.c_void_p,  # out int32 (batch, hh, w), contiguous
+                ctypes.c_void_p,  # imgs int16 (batch, hh, w), rows contiguous
+                ctypes.c_longlong,  # imgs frame stride (elements)
+                ctypes.c_longlong,  # imgs row stride (elements)
+                ctypes.c_void_p,  # row_bright bool (batch, hh), contiguous
+                ctypes.c_void_p,  # a float32 (batch,)
+                ctypes.c_void_p,  # b20 float32 (batch,)
+                *[ctypes.c_longlong] * 3,  # batch, hh, w
+                ctypes.c_int,  # black20
+                ctypes.c_void_p,  # cudaStream_t
+            ],
+        ),
+        "mlvfs_recon_blend": (
+            ctypes.c_int,
+            [
+                *[ctypes.c_void_p] * 3,  # out fullres, halfres int32 (NULL with planes), over bool
+                *[ctypes.c_void_p] * 5,  # out planes: f float32, hs_ev, fs_ev, alias int32, skip bool
+                                         # (NULL without planes; alias and skip NULL without the alias map)
+                *[ctypes.c_void_p] * 2,  # bright, dark int32 (batch, hh, w), contiguous
+                ctypes.c_void_p,  # row_bright bool (batch, hh), contiguous
+                *[ctypes.c_void_p] * 3,  # white_darkened int32, corr_ev, overlap float32 (batch,)
+                *[ctypes.c_longlong] * 3,  # batch, hh, w
+                *[ctypes.c_int] * 4,  # black20, white20, white_ev, zero_ev
+                ctypes.c_float,  # max_ev
+                ctypes.c_int,  # use_fullres
+                ctypes.c_int,  # planes
+                ctypes.c_void_p,  # cudaStream_t
+            ],
+        ),
+        "mlvfs_recon_alias_planes": (
+            ctypes.c_int,
+            [
+                *[ctypes.c_void_p] * 6,  # out f float32, hs_ev, fs_ev, f_ev (or NULL), alias int32, skip bool
+                                         # (alias and skip NULL without the alias map)
+                *[ctypes.c_void_p] * 4,  # bright, fullres_smooth, halfres_smooth, fullres (or NULL) int32
+                ctypes.c_longlong,  # n
+                ctypes.c_int,  # black20
+                ctypes.c_void_p,  # cudaStream_t
+            ],
+        ),
+        "mlvfs_recon_final": (
+            ctypes.c_int,
+            [
+                ctypes.c_void_p,  # out int16 (batch, hh, w)
+                *[ctypes.c_void_p] * 4,  # hs_ev, fs_ev, f_ev (or NULL) int32, f float32
+                ctypes.c_void_p,  # alias int32 (or NULL without the alias map)
+                ctypes.c_void_p,  # over bool
+                *[ctypes.c_void_p] * 2,  # dark, bright int32
+                *[ctypes.c_longlong] * 3,  # batch, hh, w
+                *[ctypes.c_int] * 4,  # black20, white20, white_ev, zero_ev
+                ctypes.c_void_p,  # cudaStream_t
+            ],
+        ),
+    },
+    "dualiso_scores": {
+        "mlvfs_fit_scores": (
+            ctypes.c_int,
+            [
+                ctypes.c_void_p,  # scores int64 (batch, n_cand)
+                *[ctypes.c_void_p] * 2,  # hb, hd float32 (batch, n), contiguous
+                ctypes.c_void_p,  # valid bool (batch, n)
+                ctypes.c_void_p,  # a float32 (n_cand,)
+                ctypes.c_void_p,  # b float32 (batch, n_cand)
+                *[ctypes.c_longlong] * 3,  # batch, n_cand, n
+                ctypes.c_void_p,  # cudaStream_t
+            ],
+        ),
     },
     "alias": {
         "mlvfs_alias_filter": (

@@ -7,7 +7,10 @@ integer order statistics are exact: where the reference bisects over value
 ranges by counts, this module sorts and indexes (the same values; the
 reference's bisection bounds become clamps). The exposure fit scores its
 3000 candidate gains in float32, with the fused multiply-adds and the exp
-that XLA on the CPU gives the reference (:mod:`.evmath`).
+that XLA on the CPU gives the reference (:mod:`.evmath`); on the card the
+scoring is one launch of ``csrc/dualiso_scores.cu`` (:func:`fit_scores`), and
+a batch shape's whole analysis is replayed from a CUDA graph
+(:data:`ANALYSIS_GRAPHS`).
 
 Frames are (B, H, W) int16 tensors holding u16 bits; per-frame scalars are
 (B,) tensors on the frames' device.
@@ -15,17 +18,24 @@ Frames are (B, H, W) int16 tensors holding u16 bits; per-frame scalars are
 
 from __future__ import annotations
 
+import collections
 import functools
 import math
 
 import torch
 
+from .. import _build
 from . import evmath
 from .evmath import fma
 from ..utils import metrics
 from .pixels import wrap32
 
 RANSAC_STEPS = 3000  # candidate gains 2**-(0.002 i), i < 3000 (hdr.c:749-773)
+
+# Launches of csrc/dualiso_scores.cu (the exposure fit's scoring), for
+# showing that a run went through the kernel: fit_scores adds one a call,
+# and a replayed analysis graph adds what its capture recorded.
+KERNEL_LAUNCHES = 0
 
 
 def u16(imgs: torch.Tensor) -> torch.Tensor:
@@ -140,10 +150,11 @@ def candidate_gains(device) -> torch.Tensor:
     return evmath.exp2_f32(-(torch.arange(RANSAC_STEPS, dtype=torch.float32, device=device) * 0.002))
 
 
-def match_exposures_batch(imgs, is_bright, black20s, white20s, shape, active_y1: int = 0):
+def match_exposures_batch(imgs, is_bright, black20s, white20s, shape, active_y1: int = 0, a_cand=None):
     """Exposure fit per frame (match_exposures, hdr.c:638-823), float32
     scoring. ``black20s``/``white20s`` are per-frame (B,) int32 (the white
-    from white_detect). Returns (ok, a, b, white_darkened), each (B,).
+    from white_detect); ``a_cand`` the candidate gains (default
+    :func:`candidate_gains`). Returns (ok, a, b, white_darkened), each (B,).
 
     The selected highlight pairs (b_lo < bright < b_hi) are a contiguous
     window of the bright-sorted samples, capped at hi_nmax pairs; the sort
@@ -200,13 +211,10 @@ def match_exposures_batch(imgs, is_bright, black20s, white20s, shape, active_y1:
     hb = torch.where(valid, hb_w, 0).to(torch.float32)
     hd = torch.where(valid, hd_w, 0).to(torch.float32)
 
-    a_cand = candidate_gains(dev)
+    a_cand = candidate_gains(dev) if a_cand is None else a_cand
     # dmed - bmed * a and hb * a + b, each multiply fused into its add
     b_cand = fma(-bmed.to(torch.float32)[:, None], a_cand[None, :], dmed.to(torch.float32)[:, None])
-    scores = torch.empty((bsz, RANSAC_STEPS), dtype=torch.int64, device=dev)
-    for i in range(bsz):  # one frame at a time: (3000, hi_nmax) float64 temporaries
-        e = hd[i][None, :] - fma(hb[i][None, :], a_cand[:, None], b_cand[i][:, None])
-        scores[i] = ((torch.trunc(e).abs() < 50) & valid[i][None, :]).sum(1)
+    scores = fit_scores(hb, hd, valid, a_cand, b_cand)
     best = torch.argmax(scores, dim=1)  # the first of equal scores
     a = a_cand[best]
     bb = b_cand.gather(1, best[:, None])[:, 0]
@@ -214,6 +222,46 @@ def match_exposures_batch(imgs, is_bright, black20s, white20s, shape, active_y1:
     b20 = bb * 16
     wd = fma((white20s - black20s).to(torch.float32) + b20, a, black20s.to(torch.float32))
     return ok, a, bb, wd.to(torch.int32)
+
+
+def fit_scores_plain(hb, hd, valid, a_cand, b_cand) -> torch.Tensor:
+    """Each candidate's score (B, C) int64: the frame's valid highlight
+    pairs (hb, hd) (B, N) that the candidate line hb * a + b (fused) fits
+    to within 50, truncated."""
+    scores = torch.empty((hb.shape[0], a_cand.shape[0]), dtype=torch.int64, device=hb.device)
+    for i in range(hb.shape[0]):  # one frame at a time: (C, N) temporaries
+        e = hd[i][None, :] - fma(hb[i][None, :], a_cand[:, None], b_cand[i][:, None])
+        scores[i] = ((torch.trunc(e).abs() < 50) & valid[i][None, :]).sum(1)
+    return scores
+
+
+def fit_scores(hb, hd, valid, a_cand, b_cand) -> torch.Tensor:
+    """:func:`fit_scores_plain`: its twin on CPU tensors, one launch of
+    ``csrc/dualiso_scores.cu`` on CUDA tensors (the same counts), an error
+    on any other device."""
+    global KERNEL_LAUNCHES
+    dev = hb.device
+    if dev.type == "cpu":
+        return fit_scores_plain(hb, hd, valid, a_cand, b_cand)
+    if dev.type != "cuda":
+        raise ValueError(f"fit_scores: unsupported device {dev}")
+    bsz, n = hb.shape
+    n_cand = a_cand.shape[0]
+    for t, dtype, shape, what in ((hb, torch.float32, (bsz, n), "hb"), (hd, torch.float32, (bsz, n), "hd"),
+                                  (valid, torch.bool, (bsz, n), "valid"), (a_cand, torch.float32, (n_cand,), "a"),
+                                  (b_cand, torch.float32, (bsz, n_cand), "b")):
+        if t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous() or t.device != dev:
+            raise ValueError(f"fit_scores: {what} must be a contiguous {dtype} {shape} tensor on {dev}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    scores = torch.empty((bsz, n_cand), dtype=torch.int64, device=dev)
+    fn = _build.entry("dualiso_scores", "mlvfs_fit_scores")
+    rc = _build.on_current_stream(dev, lambda stream: fn(
+        scores.data_ptr(), hb.data_ptr(), hd.data_ptr(), valid.data_ptr(), a_cand.data_ptr(),
+        b_cand.data_ptr(), bsz, n_cand, n, stream))
+    if rc != 0:
+        raise RuntimeError(f"fit_scores kernel launch failed (cudaError {rc})")
+    KERNEL_LAUNCHES += 1
+    return scores
 
 
 DARK_NOISE_EV = math.log2(8.0) + 6
@@ -245,10 +293,115 @@ def decide_batch(is_hdr, okf, ibf, wd_w, mok, a_dev, b_dev, wd_dev, hh: int, bla
     return ok, row_bright, s, a, b20, wd, ce, ovr, white20s
 
 
+def _launch_counts() -> tuple:
+    """The launch counters that the analysis' kernels add to: this module's,
+    evmath's and the ``ev.launches`` counter."""
+    return KERNEL_LAUNCHES, evmath.KERNEL_LAUNCHES, metrics.counters().get("ev.launches", 0)
+
+
+def _add_launches(counts):
+    global KERNEL_LAUNCHES
+    KERNEL_LAUNCHES += counts[0]
+    evmath.KERNEL_LAUNCHES += counts[1]
+    if counts[2]:
+        metrics.count("ev.launches", counts[2])
+
+
+def _capture(fn, inputs):
+    """A CUDA graph of ``fn(*inputs)`` (CUDA tensors): returns replay(*inputs),
+    which copies its inputs into the graph's own, replays it on the current
+    stream and returns copies of fn's outputs, so that a later replay leaves
+    them be. A graph holds no reference to what it reads, so fn reads no
+    tensor made outside it but its inputs (of which the graph keeps its own
+    copies). The kernels that the capture records launch on each replay, and
+    their launch counters count them there, not in the capture. Only this
+    thread is held to the capture's rules: the prefetch and write threads go
+    on with their copies meanwhile."""
+    static = [t.clone() for t in inputs]
+    graph = torch.cuda.CUDAGraph()
+    before = _launch_counts()
+    with torch.cuda.device(static[0].device):
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            outs = fn(*static)
+    recorded = tuple(n - m for n, m in zip(_launch_counts(), before))
+    _add_launches(tuple(-n for n in recorded))
+
+    def replay(*args):
+        for dst, src in zip(static, args):
+            dst.copy_(src)
+        graph.replay()
+        _add_launches(recorded)
+        return tuple(o.clone() for o in outs)
+
+    return replay
+
+
+class GraphCache:
+    """Calls of a function by key, replayed from CUDA graphs: a key's first
+    call runs eagerly (its lazy set-up, tables and kernel libraries, lands
+    outside any capture), its second captures a graph and replays it, every
+    later one replays. A key of None always runs eagerly. At most ``size``
+    keys are kept, the least recently used dropped first (its graph, and
+    the memory pool the graph holds, with it). ``name``'s counters
+    ``<name>_captures`` and ``<name>_replays`` count the captures and the
+    replays."""
+
+    def __init__(self, name: str, size: int, capture=_capture):
+        self.name = name
+        self.size = size
+        self._capture = capture
+        self._graphs = collections.OrderedDict()  # key -> replay, or None once seen
+
+    def __call__(self, key, fn, *inputs):
+        if key is None:
+            return fn(*inputs)
+        replay = self._graphs.pop(key, self)
+        if replay is self:  # a new key
+            out, replay = fn(*inputs), None
+        else:
+            if replay is None:
+                replay = self._capture(fn, inputs)
+                metrics.count(self.name + "_captures")
+            out = replay(*inputs)
+            metrics.count(self.name + "_replays")
+        self._graphs[key] = replay
+        while len(self._graphs) > self.size:
+            self._graphs.popitem(last=False)
+        return out
+
+    def keys(self) -> list:
+        """The keys kept, least recently used first."""
+        return list(self._graphs)
+
+    def clear(self):
+        self._graphs.clear()
+
+
+# the analysis' graphs, kept for the process: a take replays the graph that
+# an earlier take (or the first batches of this one) captured
+ANALYSIS_GRAPHS = GraphCache("dualiso.analysis", size=4)
+
+
+def analysis_key(imgs, y_off: int, hh: int, black: int):
+    """What the analysis' graph depends on: the batch's device and shape,
+    the Bayer row offset, the rows analysed and the black level (the white
+    levels it computes itself); None off the card, where it runs eagerly."""
+    if imgs.device.type != "cuda":
+        return None
+    return imgs.device, tuple(imgs.shape), y_off, hh, black
+
+
 @metrics.traced("dualiso.analysis", metrics.DEVICE)
 def analyze_batch(imgs, is_hdr, y_off: int, hh: int, black: int):
     """Field, white and exposure analysis plus the conversion decisions of a
-    batch (B, H, W) on its device; nothing is read back here."""
+    batch (B, H, W) on its device; nothing is read back here. On the card a
+    batch shape's analysis is replayed from a CUDA graph from its second
+    batch on (:data:`ANALYSIS_GRAPHS`)."""
+    fn = functools.partial(_analyze, y_off=y_off, hh=hh, black=black)
+    return ANALYSIS_GRAPHS(analysis_key(imgs, y_off, hh, black), fn, imgs, is_hdr, candidate_gains(imgs.device))
+
+
+def _analyze(imgs, is_hdr, a_cand, *, y_off: int, hh: int, black: int):
     b, _, w = imgs.shape
     ay1 = y_off  # GBRG shifts one row: active_y1 == y_off by construction
     sub = imgs[:, y_off : y_off + hh, :]
@@ -257,5 +410,5 @@ def analyze_batch(imgs, is_hdr, y_off: int, hh: int, black: int):
     wd_w, wb_w = white_detect_batch(sub, ibf, (ay1, 0, hh, w), max_pix)
     black20s = torch.full((b,), black * 64, dtype=torch.int32, device=imgs.device)
     min20s = torch.minimum(wd_w, wb_w) * 64
-    mok, a_dev, b_dev, wd_dev = match_exposures_batch(sub, ibf, black20s, min20s, (hh, w), ay1)
+    mok, a_dev, b_dev, wd_dev = match_exposures_batch(sub, ibf, black20s, min20s, (hh, w), ay1, a_cand)
     return decide_batch(is_hdr, okf, ibf, wd_w, mok, a_dev, b_dev, wd_dev, hh, black)

@@ -11,14 +11,17 @@ hdr_interpolate, hdr.c:1774-1957) with both interpolations:
   reconstruction → half-res EV-space blend (+ 20-bit chroma smoothing +
   alias map, kernel #7) → overexposure blur → final blend → 16-bit out.
 
-The per-frame analysis runs on the batch's device (``dualiso_analysis_dev``)
-and is read back once per batch (the conversion mask, and on a clip's first
-batch the white level); with ``exact_luts`` it runs on the host in float64
-(``dualiso_analysis``). The reconstruction is plain torch over the batch,
-per-frame scalars as (B,) tensors, except the alias filter chain, which is
-``ops/alias.py`` (the CUDA kernel on a CUDA tensor), and amaze-edge's
-demosaic and edge pick (``ops/amaze_core.py``, ``ops/amaze_scans.py``,
-``ops/amaze_edge.py``, CUDA kernels on a CUDA tensor).
+The per-frame analysis runs on the batch's device (``dualiso_analysis_dev``,
+on the card replayed from a CUDA graph) and is read back once per batch (the
+conversion mask, and on a clip's first batch the white level); with
+``exact_luts`` it runs on the host in float64 (``dualiso_analysis``). The
+reconstruction runs over the batch, per-frame scalars as (B,) tensors: its
+float stages (match, blend with the alias map's planes, final) are
+``ops/dualiso_recon.py`` (a CUDA kernel each on a CUDA tensor), the alias
+filter chain ``ops/alias.py`` (#7), amaze-edge's demosaic and edge pick
+``ops/amaze_core.py``, ``ops/amaze_scans.py`` and ``ops/amaze_edge.py``
+(kernels on a CUDA tensor); mean23, the borders and the 20-bit chroma
+smoothing are plain torch.
 
 Float32 stages follow the reference's operation order with the fused
 multiply-adds XLA on the CPU forms (``evmath.fma``); the EV transforms are
@@ -33,24 +36,18 @@ rounding of 0.5.
 from __future__ import annotations
 
 import functools
-import math
 
 import numpy as np
 import torch
 
 from . import alias as alias_ops
+from . import dualiso_recon as recon
 from . import evmath
 from .alias import shift
 from .amaze import amaze_edge_interpolate
 from .dualiso_analysis_dev import tdiv, u16
-from .evmath import fma
 from .luts import EV_RESOLUTION, ev2raw_lut20, fullres_curve, raw2ev_lut20
-from .unpack import to_int16_bits
 from ..utils import metrics
-
-FULLRES_THR = 0.8
-ALIAS_MAP_MAX = alias_ops.ALIAS_MAP_MAX
-DARK_NOISE20 = 8.0 * 64  # compute_noise's default stdev 8 (14-bit) for MLV frames
 
 
 def _grid(h: int, w: int, device):
@@ -160,29 +157,6 @@ def _apply_borders(p, dark, bright, row_bright):
     return put(dark, bright, (ys >= 2) & (xs >= w - 3), shift(p, -2, -2), shift(p, 0, -2))
 
 
-def _build_alias_map(fullres_smooth, halfres_smooth, fe, he, fr_bright):
-    """Aliasing-likelihood map (build_alias_map, hdr.c:1382-1486) from the
-    smoothed full-res and half-res frames, their EV planes ``fe``/``he`` and
-    the fullres curve of the bright frame; the filter chain is kernel #7."""
-    skip = fr_bright > FULLRES_THR
-    e_lin = torch.clamp((fullres_smooth - halfres_smooth).abs() - int(DARK_NOISE20) * 3 // 2, min=0)
-    e_log = (fe - he).abs()
-    alias = torch.minimum(e_lin // 2, e_log // 16).clamp(max=65530)
-    alias = torch.where(skip, 0, alias).to(torch.int32)
-    return alias_ops.alias_filter(alias.contiguous(), skip.contiguous())
-
-
-def _blur_overexposed(over):
-    """3x3-ish integer blur of the overexposure map (hdr.c:1639-1655)."""
-    _, h, w = over.shape
-    n4 = sum(shift(over, dy, dx) for dx, dy in [(0, -1), (-1, 0), (1, 0), (0, 1)])
-    nd = sum(shift(over, dy, dx) for dx, dy in [(-1, -1), (1, -1), (-1, 1), (1, 1)])
-    blurred = over + n4 * 820 // 1024 + nd * 657 // 1024
-    ys, xs = _grid(h, w, over.device)
-    inner = (ys >= 3) & (ys < h - 3) & (xs >= 3) & (xs < w - 3)
-    return torch.where(inner, blurred, over)
-
-
 @functools.lru_cache(maxsize=8)
 def _luts(black20: int, white20: int, device: torch.device):
     """The 20-bit raw→EV and EV→raw tables (int64) on ``device``, uploaded
@@ -196,16 +170,14 @@ def _frcurve(black20: int, device: torch.device):
     return torch.from_numpy(np.asarray(fullres_curve(black20), np.float32)).to(device)
 
 
-def white_ev_of(black20: int, white20: int) -> int:
-    """raw2ev(white20) on the host, the computed inverse's white clamp."""
-    return int(round(math.log2(1 + max(white20 / 64.0 - black20 / 64.0, 0)) * EV_RESOLUTION))
-
-
-@functools.lru_cache(maxsize=4)
-def _max_ev(black20: int, white20: int) -> torch.Tensor:
-    """log2 of the white's distance from black (mix_images), a 0-dim host
-    tensor, computed once per levels."""
-    return evmath.log2_f32(torch.tensor(float(white20 // 64 - black20 // 64)))
+def _table_maps(black20: int, white20: int, device) -> recon.EvMaps:
+    """``exact_luts``' EV maps: the 20-bit tables and the fullres curve."""
+    lut, inv = _luts(black20, white20, device)
+    frcurve = _frcurve(black20, device)
+    return recon.EvMaps(
+        lambda x: lut[x.clamp(0, lut.shape[0] - 1)].to(torch.int32),
+        lambda e: inv[(e.to(torch.int64) + 10 * EV_RESOLUTION).clamp(0, 24 * EV_RESOLUTION - 1)].to(torch.int32),
+        lambda x: frcurve[(x & 0xFFFFF).long()])
 
 
 @metrics.traced("recon", metrics.DEVICE)
@@ -214,50 +186,17 @@ def reconstruct_batch(imgs, row_bright, s, a, b20, white_darkened, corr_ev, over
                       use_alias: bool, cs_method: int, exact_luts: bool) -> torch.Tensor:
     """Reconstruct a batch (B, H, W) int16 (u16 bits) of interlaced frames →
     (B, H, W) int16 16-bit output. ``row_bright``/``s`` are (B, H) bool/int32,
-    the rest (B,) per-frame scalars, all on the batch's device."""
+    the rest (B,) per-frame scalars, all on the batch's device. The float
+    stages are ``ops/dualiso_recon.py``'s (a kernel launch each on the card;
+    with ``exact_luts`` their torch twins over the tables)."""
     if interp_method not in (0, 1):
         raise ValueError(f"interp_method is 0 (amaze-edge) or 1 (mean23), got {interp_method}")
-    dev = imgs.device
-    white_ev = white_ev_of(black20, white20)
-    if exact_luts or cs_method:
-        lut, inv = _luts(black20, white20, dev)
-    if exact_luts:
-        frcurve = _frcurve(black20, dev)
-
-        def ev_of(x):
-            return lut[x.clamp(0, lut.shape[0] - 1)].to(torch.int32)
-
-        def ev2raw_at(e):
-            return inv[(e.to(torch.int64) + 10 * EV_RESOLUTION).clamp(0, 24 * EV_RESOLUTION - 1)].to(
-                torch.int32)
-
-        def frcurve_of(x):
-            return frcurve[(x & 0xFFFFF).long()]
-    else:
-        def ev_of(x):
-            return evmath.raw2ev20(x, black20)
-
-        def ev2raw_at(e):
-            return evmath.ev2raw20(e, black20, white20, white_ev)
-
-        def frcurve_of(x):
-            return evmath.fullres_weight(x, black20)
-
-    def per_frame(v):
-        return v[:, None, None]
+    tables = _table_maps(black20, white20, imgs.device) if exact_luts else None
+    ev_of, ev2raw_at, frcurve_of = tables or recon.computed_maps(black20, white20)
+    levels = dict(black20=black20, white20=white20, maps=tables)
 
     with metrics.span("recon.match", metrics.DEVICE):
-        # promote to 20 bits (hdr.c:825-837)
-        raw = (u16(imgs) << 6) & 0xFFFFF
-
-        # exposure matching apply (hdr.c:783-809)
-        pf = raw.to(torch.float32)
-        rb = row_bright[:, :, None]
-        av, bv = per_frame(a.to(torch.float32)), per_frame(b20.to(torch.float32))
-        darkened = fma(bv, av, fma(pf - black20, av, float(black20)))
-        lifted = fma(bv, av, pf - bv)
-        adj = torch.clamp(torch.trunc(torch.where(rb, darkened, lifted)), 0, 0xFFFFF).to(torch.int32)
-        raw = torch.where(raw == 0, 0, adj)
+        raw = recon.match(imgs, row_bright, a, b20, black20=black20, maps=tables)
 
     with metrics.span("recon.interp", metrics.DEVICE):
         wd = white_darkened.to(torch.int32)
@@ -270,67 +209,31 @@ def reconstruct_batch(imgs, row_bright, s, a, b20, white_darkened, corr_ev, over
             dark, bright = _mean23_interpolate(raw, ev_of(raw), ev2raw_at, row_bright, s, ev_of(white_row))
 
     with metrics.span("recon.blend", metrics.DEVICE):
-        # full-res reconstruction (hdr.c:1355-1380)
-        wd3 = per_frame(wd)
-        if use_fullres:
-            fullres = torch.where(rb, torch.where(bright < wd3, bright, torch.maximum(bright, dark)), dark)
-        else:
-            fullres = torch.zeros_like(raw)
-
-        # half-res blend (mix_images, hdr.c:1560-1611)
-        max_ev = _max_ev(black20, white20)
-        ov = per_frame(overlap.to(torch.float32))
-        bright_ev = ev_of(bright)
-        dark_ev = ev_of(dark)
-        i_f = (bright & 0xFFFFF).to(torch.float32)
-        evb = evmath.log2_add(torch.clamp(i_f / 64.0 - black20 / 64.0, min=1.0),
-                              per_frame(corr_ev.to(torch.float32)))
-        t = torch.minimum(torch.clamp(evb - (max_ev - ov), min=0.0), ov)
-        cmix = -evmath.cos_f32(t * float(np.float32(math.pi)) / ov)
-        k = torch.clamp((cmix + 1) / 2, 0, 1)
-        mixed = torch.trunc(fma(bright_ev.to(torch.float32), 1 - k, dark_ev.to(torch.float32) * k)).to(torch.int32)
-        halfres = ev2raw_at(mixed)
+        # without the 20-bit smoothing between them the alias planes come with the blend
+        fullres, halfres, over, planes = recon.blend(bright, dark, row_bright, wd, corr_ev, overlap,
+                                                     use_fullres=use_fullres, planes=not cs_method,
+                                                     use_alias=use_alias, **levels)
 
     with metrics.span("recon.chroma20", metrics.DEVICE):
         if cs_method:
             # the 20-bit chroma smooth (hdr.c:1488-1500) always uses the tables
             from .chroma_smooth import chroma_smooth_20
 
+            lut, inv = _luts(black20, white20, imgs.device)
             fullres_smooth = chroma_smooth_20(fullres, cs_method, lut, inv) if use_fullres else fullres
             halfres_smooth = chroma_smooth_20(halfres, cs_method, lut, inv)
-        else:
-            fullres_smooth, halfres_smooth = fullres, halfres
 
     with metrics.span("recon.alias", metrics.DEVICE):
-        # each EV plane once (without smoothing the full-res planes are one)
-        f = frcurve_of(bright)
-        hs_ev = ev_of(halfres_smooth)
-        fs_ev = ev_of(fullres_smooth)
-        f_ev = fs_ev if fullres_smooth is fullres else ev_of(fullres)
-        alias = _build_alias_map(fullres_smooth, halfres_smooth, fs_ev, hs_ev, f) if use_alias else None
+        if cs_method:
+            planes = recon.alias_planes(bright, fullres_smooth, halfres_smooth,
+                                        fullres if use_fullres else None, use_alias=use_alias, **levels)
+        f, hs_ev, fs_ev, f_ev, alias, skip = planes
+        # the aliasing-likelihood map's filter chain (build_alias_map,
+        # hdr.c:1382-1486) is kernel #7
+        alias = alias_ops.alias_filter(alias, skip) if use_alias else None
 
     with metrics.span("recon.final", metrics.DEVICE):
-        over = torch.where((bright >= wd3) | (dark >= white20), 100, 0).to(torch.int32)
-        over = _blur_overexposed(over)
-
-        # final blend (hdr.c:1663-1758)
-        hrev = hs_ev.to(torch.float32)
-        frev = f_ev.to(torch.float32)
-        frsev = fs_ev.to(torch.float32)
-        ovf = torch.clamp(over.to(torch.float32) / 200.0, 0, 1)
-        c = torch.maximum(torch.clamp(alias.to(torch.float32) / ALIAS_MAP_MAX, 0, 1), ovf) if use_alias else ovf
-        noisy = torch.maximum(ovf, 1 - f)
-        f = torch.maximum(f, c)
-        fev = fma(noisy, frsev, (1 - noisy) * frev)
-        sig = (dark + bright) // 2
-        f = torch.clamp(torch.minimum(f, (sig - black20).to(torch.float32) / (4 * DARK_NOISE20)), min=0.0)
-        output = torch.trunc(fma(hrev, 1 - f, fev * f)).to(torch.int32)
-        output = torch.clamp(output, -10 * EV_RESOLUTION, 14 * EV_RESOLUTION - 1)
-        final20 = ev2raw_at(output)
-
-        # 20 → 16 bit; the reference's dither source is never seeded, so its
-        # noise is all zero: out = trunc(v/16 + 0.5) (hdr.c:242,1760-1772)
-        return to_int16_bits(torch.clamp((final20 + 8) >> 4, 0, 65535))
+        return recon.final(hs_ev, fs_ev, f_ev, f, alias, over, dark, bright, **levels)
 
 
 # ------------------------------------------------------------ orchestrator
@@ -439,6 +342,17 @@ def cr2hdr20_batch(imgs: torch.Tensor, fh, cfg, cal):
         imgs = torch.where(is_hdr[:, None, None], fixed, imgs)
 
     cached_rggb = getattr(cal, "dual_iso_rggb", None) if cal is not None else None
+
+    def reconstruct(white20: int, ok_dev):
+        out_sub = reconstruct_batch(
+            imgs[:, y_off : y_off + hh], row_bright, s_arr, a_arr, b20_arr, wd_arr, ce_arr, ov_arr,
+            black20=black * 64, white20=white20, interp_method=cfg.hdr_interpolation_method,
+            use_fullres=not cfg.hdr_no_fullres, use_alias=not cfg.hdr_no_alias_map,
+            cs_method=cfg.chroma_smooth, exact_luts=bool(cfg.exact_luts))
+        merged = imgs.clone()
+        merged[:, y_off : y_off + hh] = out_sub
+        return torch.where(ok_dev[:, None, None], merged, imgs)
+
     if cfg.exact_luts:
         with metrics.sync("hdr"):
             is_hdr_host = is_hdr.cpu().numpy()
@@ -449,40 +363,55 @@ def cr2hdr20_batch(imgs: torch.Tensor, fh, cfg, cal):
             return imgs, ok
         row_bright, s_arr, a_arr, b20_arr, wd_arr, ce_arr, ov_arr = (
             torch.from_numpy(v).to(dev) for v in scalars)
+        return reconstruct(white20, torch.from_numpy(ok).to(dev)), ok
+
+    from . import dualiso_analysis_dev as analysis_dev
+
+    if cached_rggb is not None:
+        rggb = cached_rggb
     else:
-        from . import dualiso_analysis_dev as analysis_dev
-
-        if cached_rggb is not None:
-            rggb = cached_rggb
-        else:
-            with metrics.sync("rggb"):
-                rggb = bool(analysis_dev.rggb_stat(imgs[0]))
+        with metrics.sync("rggb"):
+            rggb = bool(analysis_dev.rggb_stat(imgs[0]))
+    if cal is not None:
+        cal.dual_iso_rggb = rggb
+    y_off = 0 if rggb else 1
+    hh = h if rggb else h - 1
+    (ok_t, row_bright, s_arr, a_arr, b20_arr, wd_arr, ce_arr, ov_arr,
+     white20s) = analysis_dev.analyze_batch(imgs, is_hdr, y_off, hh, black)
+    # the batch's one readback: which frames convert, and their whites. Once
+    # the clip's white is known the reconstruction is enqueued before it is
+    # waited for, so the device has work queued while the thread waits
+    readback = _start_readback(torch.stack([ok_t.to(torch.int32), white20s]))
+    white20 = getattr(cal, "dual_iso_white20", None) if cal is not None else None
+    out = reconstruct(white20, ok_t) if white20 is not None else None
+    with metrics.sync("analysis"):
+        host = readback()
+    ok, w20 = host[0].astype(bool), host[1]
+    metrics.count("dualiso.frames_seen", b)
+    metrics.count("dualiso.frames_converted", int(ok.sum()))
+    if not ok.any():
+        return imgs, ok
+    if out is None:
+        # the first converted batch fixes the clip's reconstruction white
+        white20 = int(w20[ok][0])
         if cal is not None:
-            cal.dual_iso_rggb = rggb
-        y_off = 0 if rggb else 1
-        hh = h if rggb else h - 1
-        (ok_t, row_bright, s_arr, a_arr, b20_arr, wd_arr, ce_arr, ov_arr,
-         white20s) = analysis_dev.analyze_batch(imgs, is_hdr, y_off, hh, black)
-        # the batch's one readback: which frames convert, and their whites
-        with metrics.sync("analysis"):
-            host = torch.stack([ok_t.to(torch.int32), white20s]).cpu().numpy()
-        ok, w20 = host[0].astype(bool), host[1]
-        metrics.count("dualiso.frames_seen", b)
-        metrics.count("dualiso.frames_converted", int(ok.sum()))
-        if not ok.any():
-            return imgs, ok
-        white20 = getattr(cal, "dual_iso_white20", None) if cal is not None else None
-        if white20 is None:
-            # the first converted batch fixes the clip's reconstruction white
-            white20 = int(w20[ok][0])
-            if cal is not None:
-                cal.dual_iso_white20 = white20
+            cal.dual_iso_white20 = white20
+        out = reconstruct(white20, ok_t)
+    return out, ok
 
-    out_sub = reconstruct_batch(
-        imgs[:, y_off : y_off + hh], row_bright, s_arr, a_arr, b20_arr, wd_arr, ce_arr, ov_arr,
-        black20=black * 64, white20=white20, interp_method=cfg.hdr_interpolation_method,
-        use_fullres=not cfg.hdr_no_fullres, use_alias=not cfg.hdr_no_alias_map,
-        cs_method=cfg.chroma_smooth, exact_luts=bool(cfg.exact_luts))
-    merged = imgs.clone()
-    merged[:, y_off : y_off + hh] = out_sub
-    return torch.where(torch.from_numpy(ok).to(dev)[:, None, None], merged, imgs), ok
+
+def _start_readback(t: torch.Tensor):
+    """Start copying ``t`` to the host; returns a function that waits for
+    that copy (not for work enqueued after it) and gives it as numpy."""
+    if t.device.type != "cuda":
+        return t.numpy
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    copied = torch.cuda.Event()
+    copied.record(torch.cuda.current_stream(t.device))
+
+    def wait():
+        copied.synchronize()
+        return host.numpy()
+
+    return wait

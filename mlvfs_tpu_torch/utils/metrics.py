@@ -9,9 +9,11 @@ profiler hook.
     span open below it on the same thread (its parent), the take and the
     batch, ``(take, first frame)``, which every span of a batch shares on
     any thread. A device span also records a CUDA event before and after,
-    on the current stream of the traced device; the events are placed on
-    the host clock through an anchor (an event whose host time is known),
-    taken when tracing is switched on and again at each take's start.
+    on the current stream of the traced device (none while the stream
+    captures a CUDA graph: such a span keeps its host times only); the
+    events are placed on the host clock through an anchor (an event whose
+    host time is known), taken when tracing is switched on and again at
+    each take's start.
     They are read, and dropped, by `settle()`, which the converting thread
     calls once it has enqueued a batch (so the reading overlaps the
     device's work, and never falls in a take boundary), and by `spans()`;
@@ -114,9 +116,10 @@ class Span:
         if self.kind == DEVICE and _device is not None:
             import torch
 
-            start = torch.cuda.Event(enable_timing=True)
-            start.record(torch.cuda.current_stream(_device))
-            self._events = (start, _anchor)
+            if not torch.cuda.is_current_stream_capturing():
+                start = torch.cuda.Event(enable_timing=True)
+                start.record(torch.cuda.current_stream(_device))
+                self._events = (start, _anchor)
         _stack().append(self)
         self.t0 = time.perf_counter_ns()
         return self

@@ -46,6 +46,7 @@ from mlvfs_tpu_torch.format.reader import MLVClip
 from mlvfs_tpu_torch.ops import alias, amaze_core, amaze_edge, chroma_smooth, dualiso_analysis
 from mlvfs_tpu_torch.ops import dualiso_analysis_dev as dev
 from mlvfs_tpu_torch.ops import dualiso_full as full
+from mlvfs_tpu_torch.ops import dualiso_recon as recon
 from mlvfs_tpu_torch.ops import evmath, luts, pixels
 from mlvfs_tpu_torch.pipeline import kernels
 from mlvfs_tpu_torch.pipeline.config import ProcessingConfig as PortConfig
@@ -129,7 +130,7 @@ def test_alias_filter_refuses_bad_input():
 def test_blur_overexposed_matches_reference():
     rng = np.random.default_rng(1)
     over = (rng.random((3, 37, 50)) < 0.3).astype(np.int32) * 100
-    got = full._blur_overexposed(_t(over)).numpy()
+    got = recon._blur_overexposed(_t(over)).numpy()
     for i in range(3):
         want = np.asarray(ref_full._blur_overexposed(jnp.asarray(over[i]), 37, 50))
         np.testing.assert_array_equal(got[i], want)
@@ -354,7 +355,7 @@ def test_evmath_matches_reference():
     np.testing.assert_array_equal(evmath.raw2ev20(_t(raw), BLACK20).numpy(),
                                   np.asarray(ref_evmath.raw2ev20(jnp.asarray(raw), BLACK20)))
     ev = np.arange(-10 * EVR, 14 * EVR, 5, dtype=np.int32)
-    white_ev = full.white_ev_of(BLACK20, 640000)
+    white_ev = recon.white_ev_of(BLACK20, 640000)
     np.testing.assert_array_equal(
         evmath.ev2raw20(_t(ev), BLACK20, 640000, white_ev).numpy(),
         np.asarray(ref_evmath.ev2raw20(jnp.asarray(ev), BLACK20, 640000, white_ev)))
@@ -390,7 +391,7 @@ def _check_reconstruct(interp_method, exact, fullres, alias_map, cs):
     frc = jnp.asarray(np.asarray(luts.fullres_curve(BLACK20), np.float32))
     want = np.asarray(ref_full.reconstruct_batch(
         jnp.asarray(frames), *map(jnp.asarray, (rb, s, a, b20, wd, ce, ov)), lut, inv, frc,
-        white_ev=full.white_ev_of(BLACK20, white20), arith=False, **kw))
+        white_ev=recon.white_ev_of(BLACK20, white20), arith=False, **kw))
     before = _counts()
     got = full.reconstruct_batch(_t(frames.view(np.int16)), *map(_t, (rb, s, a, b20, wd, ce, ov)), **kw)
     assert _counts() == before  # the CPU runs the plain twins

@@ -17,8 +17,8 @@ import torch
 
 from mlvfs_tpu_torch import _build
 from mlvfs_tpu_torch.format import synth
-from mlvfs_tpu_torch.ops import dualiso_analysis_dev, dualiso_full, dualiso_preview_dev, evmath, stripes
-from mlvfs_tpu_torch.ops.dualiso_full import white_ev_of
+from mlvfs_tpu_torch.ops import dualiso_analysis_dev, dualiso_preview_dev, dualiso_recon, evmath, stripes
+from mlvfs_tpu_torch.ops.dualiso_recon import white_ev_of
 from mlvfs_tpu_torch.pipeline.config import ProcessingConfig
 from mlvfs_tpu_torch.pipeline.convert import convert_clip
 from mlvfs_tpu_torch.utils import metrics
@@ -227,7 +227,7 @@ def test_convert_paths_calls_plan(tmp_path, monkeypatch):
 
     monkeypatch.setattr(evmath, "_dispatch", plan_then_twin)
     # computed once per levels or device: here, not by an earlier test in this process
-    dualiso_full._max_ev.cache_clear()
+    dualiso_recon.max_ev.cache_clear()
     dualiso_analysis_dev.candidate_gains.cache_clear()
     src = str(tmp_path / "C.MLV")
     synth.write_mlv(src, width=256, height=192, frames=2, dual_iso=3)

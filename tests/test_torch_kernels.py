@@ -18,7 +18,7 @@ import torch
 from mlvfs_tpu_torch.format import synth
 from mlvfs_tpu_torch import _build
 from mlvfs_tpu_torch.ops import (alias, amaze_core, amaze_edge, amaze_scans, chroma_smooth, dualiso,
-                                 dualiso_full, dualiso_preview_dev, evmath, patternnoise,
+                                 dualiso_full, dualiso_preview_dev, dualiso_recon, evmath, patternnoise,
                                  patternnoise_fused, pixels, stripes, unpack)
 from mlvfs_tpu_torch.pipeline.config import ProcessingConfig
 from mlvfs_tpu_torch.pipeline.convert import convert_clip
@@ -922,7 +922,7 @@ def _ev_cases(name):
                         torch.tensor([-(1 << 31), (1 << 31) - 1], dtype=torch.int32)])
         cases = []
         for white20 in (15000 * 64, 640000):
-            white_ev = dualiso_full.white_ev_of(2048 * 64, white20)
+            white_ev = dualiso_recon.white_ev_of(2048 * 64, white20)
             cases.append(((ev, 2048 * 64, white20, white_ev), f"white20 {white20}"))
         return cases
     xs = _ev_float_sweep()

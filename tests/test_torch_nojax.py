@@ -73,8 +73,9 @@ def test_port_imports_no_jax(tmp_path):
         f"rc = mlvfs_tpu_torch.cli.main(['convert', {str(tmp_path / 'D.MLV')!r}, '-o', "
         f"{str(tmp_path / 'out_mega')!r}, '--device', 'cpu', '--dual-iso'])\n"
         "assert rc == 0, rc\n"
-        "from mlvfs_tpu_torch.ops import alias, amaze_core, amaze_edge, amaze_scans, dualiso_full\n"
-        "assert alias.KERNEL_LAUNCHES == 0 and dualiso_full.ALIAS_MAP_MAX == 15000\n"
+        "from mlvfs_tpu_torch.ops import alias, amaze_core, amaze_edge, amaze_scans, dualiso_recon\n"
+        "assert alias.KERNEL_LAUNCHES == 0 and dualiso_recon.ALIAS_MAP_MAX == 15000\n"
+        "assert dualiso_recon.KERNEL_LAUNCHES == 0\n"
         "assert amaze_core.KERNEL_LAUNCHES == amaze_edge.KERNEL_LAUNCHES == 0\n"
         "assert amaze_core.MEGA_LAUNCHES == 0 and amaze_core.pallas_mode() == 'mega'\n"
         "assert amaze_scans.KERNEL_LAUNCHES == amaze_scans.FRAME_LAUNCHES == 0\n"

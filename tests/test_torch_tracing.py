@@ -1,10 +1,12 @@
 """The port's tracer (``mlvfs_tpu_torch/utils/metrics.py``): spans, their
 parents and batch ids, the outermost-only EV transform spans, tracing off,
 when device times are read, a traced dual-ISO conversion, and the
-benchmark's three readers of the spans on hand-made span lists (CPU)."""
+benchmark's readers of the spans on hand-made span lists, the capture
+guard and the graph and fused-stage counters (CPU)."""
 
 import importlib.util
 import os
+import re
 import threading
 import time
 import types
@@ -146,6 +148,70 @@ def test_enable_without_a_card_keeps_host_times(device):
     assert metrics.spans() == [s] and s.device_ms is None and s.host_ms >= 0
 
 
+def test_capturing_stream_takes_no_device_events(monkeypatch):
+    """While the current stream captures a CUDA graph a device span records
+    no event (the capture would refuse it) and keeps its host times; once
+    the capture is over, events are recorded again."""
+    made = []
+
+    class Event:
+        def __init__(self, **kw):
+            made.append(self)
+
+        def record(self, stream):
+            pass
+
+    capturing = [True]
+    metrics.enable()
+    monkeypatch.setattr(metrics, "_device", torch.device("cuda", 0))
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: capturing[0])
+    monkeypatch.setattr(torch.cuda, "Event", Event)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: None)
+    with metrics.span("captured", metrics.DEVICE) as s:
+        with metrics.span("inner", metrics.DEVICE) as inner:
+            pass
+    assert made == [] and s._events is None and inner._events is None
+    assert s.t1 >= s.t0 and inner.parent == s.id
+    capturing[0] = False
+    with metrics.span("replayed", metrics.DEVICE) as r:
+        pass
+    assert len(made) == 2 and r._events[0] is made[0] and r._events[2] is made[1]
+    metrics._unresolved.clear()  # the stand-in events cannot be read
+
+
+def test_graph_and_kernel_counters_reach_the_report(tmp_path, monkeypatch):
+    """The counters of the analysis' graphs and of the fused stages reach a
+    convert's report as a card's convert counts them. On the CPU the graph
+    cache runs with a stand-in capture under keys given to CPU batches, and
+    the stages' launches are stood in for (their outputs are then left
+    unwritten: the DNGs are not looked at)."""
+    from mlvfs_tpu_torch import _build
+    from mlvfs_tpu_torch.ops import dualiso_analysis_dev, dualiso_recon
+
+    def capture(fn, inputs):
+        return lambda *args: fn(*args)
+
+    monkeypatch.setattr(dualiso_analysis_dev, "ANALYSIS_GRAPHS",
+                        dualiso_analysis_dev.GraphCache("dualiso.analysis", 4, capture))
+    monkeypatch.setattr(dualiso_analysis_dev, "analysis_key", lambda imgs, *a: (tuple(imgs.shape), *a))
+    monkeypatch.setattr(dualiso_recon, "_on_card", lambda maps, x: maps is None)
+    monkeypatch.setattr(_build, "entry", lambda name, fn: None)
+    monkeypatch.setattr(_build, "on_current_stream", lambda device, launch: 0)
+    src = _dual_iso_clip(tmp_path)
+    metrics.enable()
+    cfg = ProcessingConfig(device="cpu", dual_iso=2, hdr_interpolation_method=1, batch_size=2,
+                           hdr_no_alias_map=True)
+    launches = dualiso_recon.KERNEL_LAUNCHES
+    assert len(convert_clip(src, str(tmp_path / "out"), cfg)) == 6
+    counters = metrics.counters()
+    assert counters["dualiso.analysis_captures"] == 1  # the second batch; the first ran eagerly
+    assert counters["dualiso.analysis_replays"] == 2
+    assert counters["recon.fused_launches"] == dualiso_recon.KERNEL_LAUNCHES - launches == 3 * 3
+    report = metrics.report()
+    for line in ("dualiso.analysis_captures 1", "dualiso.analysis_replays 2", "recon.fused_launches 9"):
+        assert re.search(r"^\s*" + re.escape(line.split()[0]) + r"\s+" + line.split()[1] + "$", report, re.M), line
+
+
 def test_compressed_dng_encode_span(tmp_path):
     """With LJ92 output each batch's encode is a `finish.encode` span inside
     its `finish.render`."""
@@ -277,6 +343,7 @@ def _spans_of_two_batches():
     ("recon_ev_ms", 150.0),  # 100 + 50 under each recon; the EV span outside recon not counted
     ("recon_interp_ms", 300.0),
     ("take_boundary_ms", 1100.0),  # take 2's first decode (3000) - take 1's last process (1000 + 900)
+    ("host_enqueue_ms", 25.0),  # decode 5 + process 40 - the sync under process 20, each batch
 ])
 def test_readers_on_hand_made_spans(name, expected, monkeypatch):
     reader = _reader(name)

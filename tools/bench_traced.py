@@ -15,8 +15,9 @@ this measures what tracing costs the end-to-end metrics. The last line is
 ``--detail`` writes, after the run, each take boundary of the window (the
 compute stream's idle across it, as ``take_boundary_ms`` reads it, the
 host ms of the ``take.*`` spans and the first ``wait.fetch`` around it,
-and the host ms between the two ``take`` spans)
-and each span name's count, host ms and device ms a span.
+and the host ms between the two ``take`` spans),
+each span name's count, host ms and device ms a span, and the program's
+counters over the whole process (the warm-up convert included).
 """
 
 import argparse
@@ -80,7 +81,8 @@ def main(argv=None) -> int:
                 t["device_ms"] /= t["count"]
         os.makedirs(os.path.dirname(os.path.abspath(args.detail)), exist_ok=True)
         with open(args.detail, "w") as f:
-            json.dump({"boundaries": boundaries(spans), "per_span": totals}, f, indent=1)
+            json.dump({"boundaries": boundaries(spans), "per_span": totals, "counters": metrics.counters()},
+                      f, indent=1)
     return rc
 
 
